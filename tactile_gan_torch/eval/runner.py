@@ -1,0 +1,264 @@
+"""Test-time runner: the ``test.py --folder`` flow of the JAX package
+(``tactile_gan_tpu/eval/runner.py``) on PyTorch.
+
+Kept from the reference, as the JAX package keeps them:
+- the test loader builds the generator with Tanh on whatever the training
+  loss was (``load_model(..., activation=None)``);
+- checkpoint loading is partial (``load_state_dict(strict=False)``).
+
+Per batch the device runs: normalize the uint8 upload, the generator, the
+uint8 quantize (float64, bit-exact with the host writers' ``_u8``) and the
+four fuzzy-metric sums (float64). Host work is pipelined: a decode pool, a
+one-worker staging pool that uploads batch k+1 while batch k runs, a
+one-worker device-to-host drain, and a pool of PNG writers.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import json
+import os
+from collections import deque
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tactile_gan_torch.core.config import TrainConfig
+from tactile_gan_torch.core.device import DEFAULT_DEVICE, resolve_device
+from tactile_gan_torch.data.dataset import PairedDataset
+from tactile_gan_torch.eval.metrics import eval_pair
+from tactile_gan_torch.eval.visualize import (
+    can_plot, compose_channels, concat_images, plot_loss, print_evaluation,
+    to_pil, write_evaluation,
+)
+from tactile_gan_torch.models.blocks import init_weights
+from tactile_gan_torch.models.factory import create_generator
+from tactile_gan_torch.utils.checkpoint import load_checkpoint
+from tactile_gan_torch.utils.io import mkdir
+
+
+class GeneratorForward:
+    """The loaded generator as a callable on NHWC float32 batches that lie
+    on ``device``; runs under inference mode."""
+
+    def __init__(self, gen: torch.nn.Module, device: torch.device):
+        self.gen = gen
+        self.device = device
+
+    def __call__(self, src_f32: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self.gen(src_f32)
+
+
+def load_model(model_path: str, cfg: TrainConfig,
+               activation: Optional[bool] = None,
+               device=DEFAULT_DEVICE) -> Tuple[GeneratorForward,
+                                               torch.nn.Module]:
+    """Build the generator and restore its weights from final_model.pth.
+
+    ``activation=None`` keeps the reference test loader's always-Tanh head.
+    Parameters missing from the checkpoint keep a seeded N(0, 0.02) init.
+    """
+    dev = resolve_device(device)
+    if cfg.space_to_depth:
+        raise NotImplementedError(
+            "the --space_to_depth UNet++ variant is not ported yet")
+    act = True if activation is None else activation
+    gen = create_generator(cfg.gen, input_dim=cfg.input_dim,
+                           output_dim=cfg.output_dim, nf=cfg.nf,
+                           activation=act,
+                           compute_dtype=cfg.torch_compute_dtype)
+    init_weights(gen, torch.Generator().manual_seed(0))
+    gen.load_state_dict(load_checkpoint(model_path)["gen"], strict=False)
+    gen.to(dev).eval()
+    return GeneratorForward(gen, dev), gen
+
+
+def load_arrays(path: str) -> dict:
+    return {k: np.load(os.path.join(path, f"{k}loss.npy"))
+            for k in ("gen", "disc", "l1", "gp", "per")}
+
+
+def quantize_u8(x: torch.Tensor) -> torch.Tensor:
+    """round_half_even(clip(x, 0, 1) * 255) in float64: bit-exact with the
+    host writers' ``visualize._u8`` (torch.round rounds half to even)."""
+    return torch.round(torch.clamp(x.double(), 0.0, 1.0) * 255.0).to(torch.uint8)
+
+
+def fuzzy_sums(out: torch.Tensor, tgt_u8: torch.Tensor) -> torch.Tensor:
+    """Per-image (B, 4) float64: [sum(min(o, r)), sum(r), sum(o*r),
+    sum(o^2 + r^2)], the four sums of ``eval_pair``'s fuzzy branch, with r
+    the float32 target k/255 as the host computes it."""
+    o = out.double()
+    r = (tgt_u8.float() / 255.0).double()
+    dims = tuple(range(1, o.dim()))
+    return torch.stack([torch.minimum(o, r).sum(dims), r.sum(dims),
+                        (o * r).sum(dims), (o * o + r * r).sum(dims)], dim=1)
+
+
+def normalize_u8(src_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 image -> [-1, 1] float32, the training preprocessing."""
+    return src_u8.float() / 255.0 * 2.0 - 1.0
+
+
+def metrics_from_sums(s) -> dict:
+    s_min, s_r, s_or, s_sq = (float(v) for v in s)
+    return {"accuracy": s_min / s_r, "dice": 2.0 * s_or / s_sq,
+            "jaccard": s_or / (s_sq - s_or)}
+
+
+def _write_case(i: int, src: np.ndarray, tgt: np.ndarray, out: np.ndarray,
+                output_path: str, target_mode: str) -> None:
+    if target_mode == "rgb":
+        b_img, out_img = to_pil(tgt), to_pil(out)
+    else:
+        b_img, out_img = compose_channels(tgt), compose_channels(out)
+    out_img.save(os.path.join(output_path, "out", f"{i + 1}.png"))
+    src_img = to_pil(src) if src.dtype == np.uint8 else to_pil(src / 2.0 + 0.5)
+    concat_images(src_img, b_img, out_img).save(
+        os.path.join(output_path, "sgt", f"{i + 1}.png"))
+    if target_mode != "rgb":
+        b_elm = concat_images(*[to_pil(tgt[:, :, c:c + 1]) for c in range(3)])
+        o_elm = concat_images(*[to_pil(out[:, :, c:c + 1]) for c in range(3)])
+        concat_images(b_elm, o_elm, mode="v").save(
+            os.path.join(output_path, "elm", f"{i + 1}.png"))
+
+
+def test_model(forward: GeneratorForward, dataset, output_path: str,
+               evaluation: bool = False, target_mode: str = "rgb",
+               eval_batch: int = 1, threads: int = 4, transfer: str = "u8"
+               ) -> Tuple[List[float], List[float], List[float]]:
+    """Run every pair of ``dataset`` and write out/, sgt/ (and elm/ for
+    'ch'). ``eval_batch`` > 1 batches the forward and pads the tail by
+    repeating its last pair; metrics and artifacts are the same either way.
+
+    ``transfer`` picks what comes back to the host: "u8" quantizes on the
+    device and returns the metric sums; "f32" returns the float32 outputs
+    and computes metrics and quantization on the host in float64."""
+    if transfer not in ("u8", "f32"):
+        raise ValueError(f"unknown eval transfer mode: {transfer!r}")
+    for sub in ("out", "sgt", "elm"):
+        mkdir(os.path.join(output_path, sub))
+    accuracy, dice, jaccard = [], [], []
+    n = len(dataset)
+    if n == 0:
+        return accuracy, dice, jaccard
+    chunks = [list(range(s, min(s + eval_batch, n)))
+              for s in range(0, n, eval_batch)]
+    want_sums = transfer == "u8" and evaluation
+    dev = forward.device
+
+    def pad(arrs):
+        stacked = np.stack(arrs)
+        if len(arrs) < eval_batch:
+            stacked = np.concatenate(
+                [stacked, np.repeat(stacked[-1:], eval_batch - len(arrs), 0)])
+        return stacked
+
+    # CPU-bound pools never exceed the core count.
+    host_par = max(1, min(threads, os.cpu_count() or threads))
+    with cf.ThreadPoolExecutor(max_workers=host_par) as decode, \
+            cf.ThreadPoolExecutor(max_workers=1) as staging, \
+            cf.ThreadPoolExecutor(max_workers=1) as d2h, \
+            cf.ThreadPoolExecutor(max_workers=host_par) as worker:
+
+        def assemble(idxs):
+            pairs = list(decode.map(dataset.load_pair, idxs))
+            src = torch.from_numpy(pad([p[0] for p in pairs])).to(dev)
+            tgt = (torch.from_numpy(pad([p[1] for p in pairs])).to(dev)
+                   if want_sums else None)
+            return idxs, pairs, src, tgt
+
+        writes, metrics = [], []
+
+        def drain(idxs, pairs, dev_out, dev_sums):
+            outs = dev_out.cpu().numpy()
+            sums = dev_sums.cpu().numpy() if dev_sums is not None else None
+            for k, i in enumerate(idxs):
+                out, tgt_u8 = outs[k], pairs[k][1]
+                if evaluation:
+                    if sums is not None:
+                        metrics.append(metrics_from_sums(sums[k]))
+                    else:
+                        metrics.append(worker.submit(
+                            eval_pair, tgt_u8.astype(np.float32) / 255.0, out))
+                writes.append(worker.submit(
+                    _write_case, i, pairs[k][0], tgt_u8, out, output_path,
+                    target_mode))
+
+        pending = staging.submit(assemble, chunks[0])
+        drains = deque()
+        for ci in range(len(chunks)):
+            idxs, pairs, src_u8, tgt_u8 = pending.result()
+            if ci + 1 < len(chunks):
+                pending = staging.submit(assemble, chunks[ci + 1])
+            out = forward(normalize_u8(src_u8))
+            if transfer == "f32":
+                dev_out, dev_sums = out, None
+            else:
+                dev_out = quantize_u8(out)
+                dev_sums = fuzzy_sums(out, tgt_u8) if want_sums else None
+            drains.append(d2h.submit(drain, idxs, pairs, dev_out, dev_sums))
+            while len(drains) > 4:  # cap live device output buffers
+                drains.popleft().result()
+        for f in drains:
+            f.result()
+        for f in metrics:
+            res = f.result() if isinstance(f, cf.Future) else f
+            accuracy.append(float(res["accuracy"]))
+            dice.append(float(res["dice"]))
+            jaccard.append(float(res["jaccard"]))
+        for w in writes:
+            w.result()
+    return accuracy, dice, jaccard
+
+
+def evaluate_folder(folder: str, work_root: str = ".",
+                    data_override: Optional[str] = None,
+                    eval_batch: int = 1, transfer: str = "u8",
+                    device=DEFAULT_DEVICE) -> Optional[dict]:
+    """The test.py flow: params.txt, model, data and loss arrays; the loss
+    plot; the run; eval.txt and the distribution plots.
+
+    On a host without matplotlib the plots are skipped with a note; every
+    other artifact is written as usual."""
+    params_path = os.path.join(work_root, "models", folder.split("/")[-1],
+                               "params.txt")
+    cfg = TrainConfig.from_params_file(params_path)
+    # The model and loss arrays live under the params.txt-recorded
+    # folder_save, which may differ from the --folder argument.
+    model_dir = os.path.join(work_root, "models", cfg.folder_save)
+    with open(params_path) as f:
+        if json.load(f).get("vgg_random_fallback"):
+            print("NOTE: params.txt records vgg_random_fallback=true — this "
+                  "model was trained against deterministic random VGG "
+                  "features.")
+
+    forward, _ = load_model(os.path.join(model_dir, "final_model.pth"), cfg,
+                            device=device)
+    data_dir = data_override or cfg.data
+    dataset = PairedDataset(os.path.join(work_root, data_dir, "test", "source"),
+                            size=cfg.image_size, mode="test",
+                            target=cfg.target)
+    output_path = os.path.join(work_root, "Outputs", cfg.folder_save)
+    mkdir(output_path)
+    plots = can_plot()
+    if plots:
+        plot_loss(load_arrays(model_dir), cfg.initial_epoch, cfg.total_epochs,
+                  output_path)
+    else:
+        print("NOTE: matplotlib is not installed; loss.png and the metric "
+              "distribution plots are not written.")
+
+    accuracy, dice, jaccard = test_model(
+        forward, dataset, output_path, evaluation=True,
+        target_mode=cfg.target, eval_batch=eval_batch,
+        threads=max(1, min(cfg.threads, 8)), transfer=transfer)
+    if accuracy:
+        report = print_evaluation if plots else write_evaluation
+        report(accuracy, dice, jaccard, output_path)
+        return {"accuracy": float(np.mean(accuracy)),
+                "dice": float(np.mean(dice)),
+                "jaccard": float(np.mean(jaccard))}
+    return None

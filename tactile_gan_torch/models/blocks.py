@@ -1,0 +1,102 @@
+"""Generator building blocks on NHWC activations.
+
+Parameters live in ordinary ``nn.Conv2d`` / ``nn.InstanceNorm2d`` modules so
+``state_dict`` names and shapes are the PyTorch reference's
+(``layer.{0,1,3,4}``, ``conv``); the forward runs the port's own ops:
+``ops/conv.py`` (library conv) for convs that stay on the library, kernel B
+for the full-resolution 3x3 convs, and kernel A for every instance norm +
+ReLU. Initialization is the reference's: conv weights ~ N(0, 0.02), biases
+zero, instance-norm affine (1, 0).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from tactile_gan_torch.ops.conv import conv2d
+from tactile_gan_torch.ops.kernels.conv3x3 import conv3x3
+from tactile_gan_torch.ops.kernels.instance_norm import instance_norm_act
+
+
+def conv_norm_relu(x: torch.Tensor, conv: nn.Conv2d, norm: nn.InstanceNorm2d,
+                   *, compute_dtype: torch.dtype,
+                   kernel_conv: bool) -> torch.Tensor:
+    """conv -> instance norm -> ReLU, the unit every generator block repeats.
+
+    ``kernel_conv`` runs the (3x3/s1/p1, bias-free) conv through kernel B.
+    """
+    if kernel_conv:
+        y = conv3x3(x, conv.weight, compute_dtype=compute_dtype)
+    else:
+        y = conv2d(x, conv.weight, stride=conv.stride[0],
+                   padding=conv.padding[0], bias=conv.bias,
+                   compute_dtype=compute_dtype)
+    return instance_norm_act(y, norm.weight, norm.bias, act="relu")
+
+
+class DoubleConvBlock(nn.Module):
+    """Two conv3x3 -> IN -> ReLU units: UNet++'s ConvBlock (bias-free convs,
+    affine norms).
+
+    ``full_res`` marks a block of the full-resolution row, whose convs run
+    kernel B; the ``stem`` block's first conv (3 input channels) stays on
+    the library conv, as in the JAX package.
+    """
+
+    def __init__(self, in_channels: int, features: int, *,
+                 compute_dtype: torch.dtype = torch.float32,
+                 full_res: bool = False, stem: bool = False):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.kernel_convs = (full_res and not stem, full_res)
+        self.layer = nn.Sequential(
+            nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
+            nn.InstanceNorm2d(features, affine=True),
+            nn.ReLU(),
+            nn.Conv2d(features, features, 3, padding=1, bias=False),
+            nn.InstanceNorm2d(features, affine=True),
+            nn.ReLU(),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for (conv, norm), kernel_conv in zip(
+                ((self.layer[0], self.layer[1]), (self.layer[3], self.layer[4])),
+                self.kernel_convs):
+            x = conv_norm_relu(x, conv, norm, compute_dtype=self.compute_dtype,
+                               kernel_conv=kernel_conv)
+        return x
+
+
+class Head(nn.Module):
+    """1x1 projection with optional Tanh (the reference's FeatureMapBlock);
+    the output is always float32."""
+
+    def __init__(self, in_channels: int, features: int, *,
+                 activation: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.activation = activation
+        self.compute_dtype = compute_dtype
+        self.conv = nn.Conv2d(in_channels, features, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv2d(x, self.conv.weight, bias=self.conv.bias,
+                   compute_dtype=self.compute_dtype)
+        return torch.tanh(y) if self.activation else y
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module,
+                 generator: Optional[torch.Generator] = None) -> None:
+    """Conv weights ~ N(0, 0.02) and biases 0; norms keep (1, 0)."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            m.weight.normal_(0.0, 0.02, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.InstanceNorm2d) and m.affine:
+            m.weight.fill_(1.0)
+            m.bias.zero_()
