@@ -3,28 +3,43 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--seed 0] [--images 126]
+    python3 chip_smoke.py [--seed 0] [--images 126] [--train_pairs 48]
 
-Phases, each raising on failure:
+Phases, each raising on failure (each prints its seconds):
   0. build the hand-written kernels from tactile_gan_torch/csrc (one nvcc
      per source, in parallel) and print ptxas's register/spill report;
-  1. hold each kernel against its plain PyTorch version on the card, at
-     a few shapes off the serving path (partial tiles, odd channel counts)
-     and at every shape the serving forward gives it, in float32 and
-     bfloat16;
-  2. time each kernel, its plain version and one library call computing the
-     same function (a yardstick only: the port never calls it), beside the
-     least time the card could take (bytes / 3.35 TB/s or flops / peak);
-  3. serve: a UNet++ nf=64 generator at 256x256 with N(0, 0.02) weights from
-     --seed is written as models/<folder>/final_model.pth + params.txt under
-     a temporary work root, loaded through the port's load_model on cuda,
-     timed alone at batch 1 and 4, then run through evaluate_folder (the
-     test.py flow) over synthetic chart pairs written as PNG/TIFF files, at
-     eval_batch 1 and 4 (the plots are skipped where matplotlib is not
-     installed; the runner says so). The launch counts
-     must show both kernels on the path; the outputs must be finite; the
-     card's output for one image must match the same weights run on the CPU
-     through the plain path.
+  1. hold each kernel against its plain PyTorch version on the card at
+     shapes off the main path (partial tiles, channel counts that are not a
+     multiple of 64, several output-channel tiles), in float32 and bfloat16:
+     A and B forward, C (instance-norm backward), B-dx and D (the conv's
+     input and weight gradients);
+  2. the same at every shape the serving forward and the training step give
+     each kernel, with times: the kernel, its plain version and one library
+     call computing the same function (a yardstick only: the port never
+     calls it), beside the least time the card could take (bytes /
+     3.35 TB/s or flops / peak);
+  3. train: synthetic chart pairs are written as data/train under a
+     temporary work root and ``tactile_gan_torch.cli.train.main`` runs at
+     its defaults (UNet++ nf=64, batch 4, 256x256, ls loss with label
+     smoothing, v1 perceptual loss on the port's seeded VGG fallback, GP
+     every epoch) for two epochs on cuda. The launch counters must show
+     exactly 30 A, 30 C, 9 B, 9 B-dx and 9 D launches a step; the losses
+     must be finite and every artifact written. Steady-state ms per step
+     and img/s (epoch 2, the host pipeline included) and peak device memory
+     are printed. The trained folder is then served through evaluate_folder
+     (train -> test end to end);
+  4. serve: a UNet++ nf=64 generator with N(0, 0.02) weights from --seed is
+     loaded through the port's load_model on cuda, timed alone at batch 1
+     and 4, then run through evaluate_folder (the test.py flow) over
+     synthetic chart pairs at eval_batch 1 and 4 (the plots are skipped
+     where matplotlib is not installed; the runner says so), with the
+     launch counts of both forward kernels; the card's output for one image
+     must match the same weights run on the CPU through the plain path;
+  5. one training step on the card against the same step on the CPU (plain
+     versions), from the same weights and injected draws, at nf=16, 64x64,
+     batch 2, float32 compute with TF32 off, learning rate 0: the losses
+     and every gradient before the Adam update must agree (median and worst
+     tensor, against the measured float32 floor of this step).
 
 Prints the card (nvidia-smi name and power limit), one JSON line of kernel
 numbers, and last {"ok": true, "device": {...}}. Details go to --out
@@ -69,6 +84,25 @@ B_CINS = [(64, 5), (192, 1), (256, 1), (320, 1), (384, 1)]
 FULL_RES = 256
 A_PER_FORWARD = sum(k for _, k in A_SHAPES)
 B_PER_FORWARD = sum(k for _, k in B_CINS)
+TRAIN_BATCH = 4
+# Launches per training step: one generator forward (A, B) and its
+# backward (C at A's shapes, B-dx and D at B's).
+PER_STEP = {"instance_norm_act": A_PER_FORWARD,
+            "instance_norm_act_backward": A_PER_FORWARD,
+            "conv3x3": B_PER_FORWARD, "conv3x3_dgrad": B_PER_FORWARD,
+            "conv3x3_wgrad": B_PER_FORWARD}
+# Card against CPU, one training step at float32 compute with TF32 off:
+# float32 sums in other orders through the step (the GP differentiates D
+# twice). Losses relative. Gradients: each tensor's max |diff| as a share of
+# its max |grad|, held by the median tensor and the worst one. This step's
+# gradients move that much between any two float32 runs that differ in the
+# last bit (the instance-norm backward subtracts means through ~15 layers,
+# and ReLUs at z ~ 0 flip): the phase measures that floor on the CPU, every
+# weight scaled by (1 + 1e-7 N(0, 1)), and prints it beside the card's
+# numbers (PERF.md records both). A faulty kernel moves its tensors by O(1).
+STEP_LOSS_RTOL = 1e-3
+STEP_GRAD_WORST = 5e-2
+STEP_GRAD_MEDIAN = 1e-2
 
 
 def card_line() -> str:
@@ -127,6 +161,10 @@ def check_close(name, got, want, dtype_name):
     return max_err
 
 
+# Reductions (D's dk, C's dscale and doffset): float32 sums over up to
+# 262,144 pixels in another order, against the largest entry.
+SUM_SHARE = 1e-4
+
 # Shapes off the serving path, for the kernels' edges: partial tiles, C and
 # Cin not a multiple of 16, Co below 64, every activation, no affine.
 EDGE_A = [((3, 7, 5, 24), "leaky_relu", True), ((2, 9, 13, 136), None, False),
@@ -134,7 +172,19 @@ EDGE_A = [((3, 7, 5, 24), "leaky_relu", True), ((2, 9, 13, 136), None, False),
 EDGE_B = [((2, 37, 53, 24), 32), ((1, 9, 17, 8), 16), ((1, 40, 70, 40), 64)]
 
 
-def phase_edges(torch, ka, kb, seed):
+def check_share(name, got, want):
+    """A reduction kernel against its plain version (D's dk, C's dscale and
+    doffset): float32 sums of up to N*H*W terms in another order, within a
+    share of the largest entry."""
+    err = (got - want).abs().max().item()
+    limit = SUM_SHARE * want.abs().max().item()
+    if not (math.isfinite(err) and err <= limit):
+        raise AssertionError(f"{name}: kernel and plain version disagree, "
+                             f"max |diff| {err:.3e} > {limit:.3e}")
+    return err
+
+
+def phase_edges(torch, ka, kb, kd, seed):
     """Kernel vs plain version at shapes off the serving path."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     for shape, act, affine in EDGE_A:
@@ -167,6 +217,50 @@ def phase_edges(torch, ka, kb, seed):
                               kb.conv3x3_plain(x, wt, compute_dtype=cd), dn)
             print(f"B edge {list(shape)} co={co} {dn}/{cn}: max|diff| "
                   f"{err:.3e}", flush=True)
+    # Kernel C at A's edge shapes: its stats come from kernel A.
+    for shape, act, affine in EDGE_A:
+        c = shape[-1]
+        for dt in (torch.float32, torch.bfloat16):
+            dn = str(dt).split(".")[1]
+            x = (torch.randn(shape, device="cuda", generator=gen) + 1).to(dt)
+            g = torch.randn(shape, device="cuda", generator=gen).to(dt)
+            s = o = None
+            if affine:
+                s = 1 + 0.1 * torch.randn(c, device="cuda", generator=gen)
+                o = 0.1 * torch.randn(c, device="cuda", generator=gen)
+            _, st = ka.forward_kernel(x, s, o, act, 0.2)
+            got = ka.backward_kernel(x, g, st, s, o, act, 0.2)
+            torch.cuda.synchronize()
+            want = ka.instance_norm_act_backward_plain(x, g, st, s, o, act=act)
+            err = check_close(f"C edge {shape} {dn} {act} dx", got[0],
+                              want[0], dn)
+            for name, a, b in zip(("dscale", "doffset"), got[1:], want[1:]):
+                check_share(f"C edge {shape} {dn} {name}", a, b)
+            print(f"C edge {list(shape)} {dn} act={act} affine={affine}: "
+                  f"max|diff| {err:.3e}", flush=True)
+    # B-dx and D at B's edge shapes; the dx output width is the forward's
+    # Cin (24, 8, 40: partial and several output-channel tiles), plus wide
+    # odd Cin for D's channel tiles.
+    for shape, co in EDGE_B + [((2, 19, 45, 136), 16)]:
+        for in_dt, cd in ((torch.float32, torch.bfloat16),
+                          (torch.bfloat16, torch.bfloat16),
+                          (torch.float32, torch.float32)):
+            dn, cn = str(in_dt).split(".")[1], str(cd).split(".")[1]
+            x = torch.randn(shape, device="cuda", generator=gen).to(in_dt)
+            g = torch.randn(shape[:3] + (co,), device="cuda",
+                            generator=gen).to(in_dt)
+            wt = 0.1 * torch.randn((co, shape[-1], 3, 3), device="cuda",
+                                   generator=gen)
+            dx = kb.dgrad_kernel(g, wt, cd)
+            dk = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
+            torch.cuda.synchronize()
+            err = check_close(f"B-dx edge {shape} co {co} {dn}/{cn}", dx,
+                              kb.conv3x3_dgrad_plain(g, wt, compute_dtype=cd),
+                              dn)
+            err_d = check_share(f"D edge {shape} co {co} {dn}/{cn}", dk,
+                                kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd))
+            print(f"B-dx/D edge {list(shape)} co={co} {dn}/{cn}: max|diff| "
+                  f"{err:.3e} / {err_d:.3e}", flush=True)
 
 
 def phase_kernels(torch, ka, kb, seed, record):
@@ -254,6 +348,314 @@ def phase_kernels(torch, ka, kb, seed, record):
     return a_rows, b_rows
 
 
+def phase_train_kernels(torch, ka, kb, kd, seed, record):
+    """Kernels C, B-dx and D against their plain versions at every shape of
+    a training step (batch 4, float32 activations, bf16 conv operands), with
+    times."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    dev = "cuda"
+    c_rows, dx_rows, d_rows = [], [], []
+    for (h, w, c), per_step in A_SHAPES:
+        shape = (TRAIN_BATCH, h, w, c)
+        x = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
+        g = torch.randn(shape, device=dev, generator=gen)
+        s = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
+        o = 0.1 * torch.randn(c, device=dev, generator=gen)
+        _, st = ka.forward_kernel(x, s, o, "relu", 0.2)
+        got = ka.backward_kernel(x, g, st, s, o, "relu", 0.2)
+        torch.cuda.synchronize()
+        want = ka.instance_norm_act_backward_plain(x, g, st, s, o, act="relu")
+        err = check_close(f"C {shape}", got[0], want[0], "float32")
+        for name, a, b in zip(("dscale", "doffset"), got[1:], want[1:]):
+            check_share(f"C {shape} {name}", a, b)
+        nbytes = 3 * x.numel() * x.element_size()
+        row = {"shape": list(shape), "dtype": "float32",
+               "per_step": per_step, "max_abs_err": err, "tol": TOL["float32"],
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        row["ms"], row["call_ms"] = cuda_ms(
+            lambda: ka.backward_kernel(x, g, st, s, o, "relu", 0.2))
+        row["plain_ms"], _ = cuda_ms(
+            lambda: ka.instance_norm_act_backward_plain(x, g, st, s, o,
+                                                        act="relu"))
+        # Library yardstick: autograd's backward of F.instance_norm + relu
+        # on the channels_last view.
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        sl, ol = s.clone().requires_grad_(), o.clone().requires_grad_()
+        yl = torch.relu(F.instance_norm(xl, weight=sl, bias=ol, eps=ka.EPS))
+        gl = g.permute(0, 3, 1, 2)
+        row["library_ms"], _ = cuda_ms(lambda: torch.autograd.grad(
+            yl, (xl, sl, ol), gl, retain_graph=True))
+        del yl
+        c_rows.append(row)
+        print(f"C {row['shape']}: max|diff| {err:.3e} ms {row['ms']:.4f} "
+              f"plain {row['plain_ms']:.4f} library {row['library_ms']:.4f} "
+              f"bound {row['bound_ms']:.4f}", flush=True)
+
+    for cin, per_step in B_CINS:
+        pix = TRAIN_BATCH * FULL_RES * FULL_RES
+        x = torch.randn((TRAIN_BATCH, FULL_RES, FULL_RES, cin), device=dev,
+                        generator=gen)
+        g = torch.randn((TRAIN_BATCH, FULL_RES, FULL_RES, 64), device=dev,
+                        generator=gen)
+        wt = 0.05 * torch.randn((64, cin, 3, 3), device=dev, generator=gen)
+        cd = torch.bfloat16
+        dx = kb.dgrad_kernel(g, wt, cd)
+        dk = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
+        torch.cuda.synchronize()
+        err_dx = check_close(f"B-dx cin {cin}", dx,
+                             kb.conv3x3_dgrad_plain(g, wt, compute_dtype=cd),
+                             "float32")
+        err_d = check_share(f"D cin {cin}", dk,
+                            kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd))
+        dk2 = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
+        if not torch.equal(dk, dk2):
+            raise AssertionError(f"D cin {cin}: two runs differ")
+        flops = 2 * pix * 9 * cin * 64
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        xl = x.to(cd).permute(0, 3, 1, 2)
+        gl = g.to(cd).permute(0, 3, 1, 2)
+        wl = wt.to(cd)
+        for rows, name, err, nbytes, fn, plain, lib in (
+                (dx_rows, "B-dx", err_dx,
+                 (g.numel() + x.numel()) * 4 + 9 * cin * 64 * 2,
+                 lambda: kb.dgrad_kernel(g, wt, cd),
+                 lambda: kb.conv3x3_dgrad_plain(g, wt, compute_dtype=cd),
+                 lambda: torch.nn.grad.conv2d_input(xl.shape, wl, gl,
+                                                    padding=1)),
+                (d_rows, "D", err_d,
+                 (g.numel() + x.numel()) * 4 + 9 * cin * 64 * 4,
+                 lambda: kd.conv3x3_wgrad(x, g, compute_dtype=cd),
+                 lambda: kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd),
+                 lambda: torch.nn.grad.conv2d_weight(xl, wl.shape, gl,
+                                                     padding=1))):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            row = {"shape": [TRAIN_BATCH, FULL_RES, FULL_RES, cin], "co": 64,
+                   "dtype": "float32", "compute": "bfloat16",
+                   "per_step": per_step, "max_abs_err": err, "flops": flops,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            row["ms"], row["call_ms"] = cuda_ms(fn)
+            row["plain_ms"], _ = cuda_ms(plain)
+            row["library_ms"], _ = cuda_ms(lib)
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows.append(row)
+            print(f"{name} cin {cin}: max|diff| {err:.3e} ms {row['ms']:.4f} "
+                  f"({row['tflops']:.1f} TFLOP/s) plain {row['plain_ms']:.4f} "
+                  f"library {row['library_ms']:.4f} bound "
+                  f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+    record["kernel_c"], record["kernel_b_dx"], record["kernel_d"] = (
+        c_rows, dx_rows, d_rows)
+    return c_rows, dx_rows, d_rows
+
+
+def write_pairs(root, split, pairs):
+    from PIL import Image
+
+    src_dir = os.path.join(root, "data", split, "source")
+    tac_dir = os.path.join(root, "data", split, "tactile")
+    os.makedirs(src_dir)
+    os.makedirs(tac_dir)
+    for i, (s, t) in enumerate(pairs):
+        Image.fromarray(s).save(os.path.join(src_dir, f"s_{i:04d}.png"))
+        Image.fromarray(t).save(os.path.join(tac_dir, f"t_{i:04d}.tiff"))
+
+
+def launch_counts(ka, kb, kd):
+    return {"instance_norm_act": ka.instance_norm_act.launches,
+            "instance_norm_act_backward": ka.backward_kernel.launches,
+            "conv3x3": kb.conv3x3.launches,
+            "conv3x3_dgrad": kb.dgrad_kernel.launches,
+            "conv3x3_wgrad": kd.conv3x3_wgrad.launches}
+
+
+def reset_counts(ka, kb, kd):
+    ka.instance_norm_act.launches = ka.backward_kernel.launches = 0
+    kb.conv3x3.launches = kb.dgrad_kernel.launches = 0
+    kd.conv3x3_wgrad.launches = 0
+
+
+def phase_train(torch, ka, kb, kd, args, record):
+    """train.py at its defaults through the port's CLI on cuda, then the
+    trained folder through evaluate_folder."""
+    from tactile_gan_torch.cli import train as train_cli
+    from tactile_gan_torch.eval import runner
+
+    out = {"pairs": args.train_pairs, "epochs": 2}
+    with tempfile.TemporaryDirectory() as root:
+        write_pairs(root, "train", chart_pairs(args.train_pairs, FULL_RES,
+                                               args.seed + 5))
+        write_pairs(root, "test", chart_pairs(8, FULL_RES, args.seed + 6))
+        # The library convs as a user runs them: cuDNN's TF32 default.
+        torch.backends.cudnn.allow_tf32 = True
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(ka, kb, kd)
+        t0 = time.perf_counter()
+        trainer = train_cli.main(["--data", os.path.join(root, "data"),
+                                  "--total_epochs", "2", "--epoch_constant",
+                                  "1", "--folder_save", "train_smoke",
+                                  "--seed", str(args.seed)])
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        counts = launch_counts(ka, kb, kd)
+        torch.backends.cudnn.allow_tf32 = False
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        cfg = trainer.cfg
+        steps = trainer.state.step
+        out.update(steps=steps, steps_per_epoch=trainer.steps_per_epoch,
+                   launches=counts, epoch_seconds=trainer.epoch_seconds,
+                   config={k: getattr(cfg, k) for k in (
+                       "gen", "nf", "batch_size", "image_size", "loss",
+                       "lambda_gp", "lambda_per", "version", "compute_dtype",
+                       "host_aug")})
+        want = {k: v * steps for k, v in PER_STEP.items()}
+        if counts != want:
+            raise AssertionError(f"training launches {counts}, expected "
+                                 f"{want} ({steps} steps)")
+        if (cfg.gen, cfg.nf, cfg.batch_size, cfg.image_size) != (
+                "UNet++", 64, TRAIN_BATCH, FULL_RES) or not trainer.vgg_random_fallback:
+            raise AssertionError(f"not the default training config: {cfg}")
+        model_dir = cfg.models_dir()
+        losses = {k: np.load(os.path.join(model_dir, f"{k}loss.npy")).tolist()
+                  for k in ("gen", "disc", "l1", "gp", "per")}
+        out["losses"] = losses
+        if not all(len(v) == 2 and all(math.isfinite(x) for x in v)
+                   for v in losses.values()):
+            raise AssertionError(f"training losses {losses}")
+        if not (min(losses["gp"]) > 0 and min(losses["per"]) > 0):
+            raise AssertionError(f"GP or perceptual term missing: {losses}")
+        for name in ("final_model.pth", "params.txt"):
+            if not os.path.exists(os.path.join(model_dir, name)):
+                raise AssertionError(f"{name} not written")
+        ms = trainer.epoch_seconds[1] * 1e3 / trainer.steps_per_epoch
+        out["ms_per_step"] = ms
+        out["img_per_s"] = TRAIN_BATCH * 1e3 / ms
+        print(f"train: {steps} steps in {out['train_s']:.2f} s (epochs "
+              f"{trainer.epoch_seconds[0]:.2f} s, {trainer.epoch_seconds[1]:.2f}"
+              f" s); steady state {ms:.2f} ms/step = {out['img_per_s']:.2f} "
+              f"img/s at batch {TRAIN_BATCH}; peak memory "
+              f"{out['peak_mem_bytes'] / 2**30:.2f} GiB; launches {counts}; "
+              f"losses {losses}", flush=True)
+
+        reset_counts(ka, kb, kd)
+        metrics = runner.evaluate_folder("train_smoke", work_root=root,
+                                         eval_batch=4, device="cuda")
+        torch.cuda.synchronize()
+        serve_counts = launch_counts(ka, kb, kd)
+        out["serve_launches"] = serve_counts
+        out["serve_metrics"] = metrics
+        forwards = 2  # 8 test pairs at eval_batch 4
+        if (serve_counts["instance_norm_act"], serve_counts["conv3x3"]) != (
+                A_PER_FORWARD * forwards, B_PER_FORWARD * forwards) or not all(
+                math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"serving the trained folder: launches "
+                                 f"{serve_counts}, metrics {metrics}")
+        print(f"served the trained folder: {metrics}; launches {serve_counts}",
+              flush=True)
+    record["train"] = out
+    return out
+
+
+def phase_step_card_vs_cpu(torch, args, record):
+    """One training step on the card and on the CPU from the same weights
+    and injected draws: nf=16, 64x64, batch 2, float32 compute, TF32 off,
+    learning rate 0. Compares the losses and every gradient before the Adam
+    update."""
+    from tactile_gan_torch.core.config import TrainConfig
+    from tactile_gan_torch.models.blocks import init_weights
+    from tactile_gan_torch.models.factory import (
+        create_discriminator, create_generator,
+    )
+    from tactile_gan_torch.models.vgg import load_vgg_features
+    from tactile_gan_torch.train.state import TrainState, make_optimizer
+    from tactile_gan_torch.train.step import METRICS, build_train_step
+
+    nf, size, batch = 16, 64, 2
+    cfg = TrainConfig(nf=nf, batch_size=batch, image_size=size,
+                      compute_dtype="float32")
+    rng = np.random.default_rng(args.seed + 11)
+    src = torch.from_numpy(rng.integers(0, 255, (batch, size, size, 3),
+                                        dtype=np.uint8))
+    tgt = torch.from_numpy(rng.integers(0, 255, (batch, size, size, 3),
+                                        dtype=np.uint8))
+    noise = torch.from_numpy(rng.standard_normal((batch, 9, 9, 1))
+                             .astype(np.float32))
+    alpha = torch.from_numpy(rng.uniform(size=(batch, 1, 1, 1))
+                             .astype(np.float32))
+    results = {}
+    # The card, the CPU, and the CPU again with every weight scaled by
+    # (1 + 1e-7 N(0, 1)): the last run measures how far this step's
+    # gradients move between two float32 runs that differ in the last bit.
+    for run, dev, eps in (("card", "cuda", 0.0), ("cpu", "cpu", 0.0),
+                          ("cpu_perturbed", "cpu", 1e-7)):
+        gen = create_generator("UNet++", nf=nf, compute_dtype=torch.float32)
+        disc = create_discriminator("patch", nf=nf)
+        init_weights(gen, torch.Generator().manual_seed(args.seed + 12))
+        init_weights(disc, torch.Generator().manual_seed(args.seed + 13))
+        if eps:
+            g = torch.Generator().manual_seed(args.seed + 14)
+            with torch.no_grad():
+                for p in list(gen.parameters()) + list(disc.parameters()):
+                    p.mul_(1 + eps * torch.randn(p.shape, generator=g))
+        gen.to(dev)
+        disc.to(dev)
+        opt_g = make_optimizer(gen.parameters(), cfg.lr, cfg.beta1)
+        opt_d = make_optimizer(disc.parameters(), cfg.lr, cfg.beta1)
+        grads = {}
+        for name, opt, model in (("G", opt_g, gen), ("D", opt_d, disc)):
+            names = [n for n, _ in model.named_parameters()]
+
+            def hook(o, _args, _kwargs, name=name, names=names):
+                grads[name] = {n: p.grad.detach().cpu().clone() for n, p in
+                               zip(names, o.param_groups[0]["params"])}
+            opt.register_step_pre_hook(hook)
+        # Learning rate 0: both sides score G against the same D. Adam's
+        # first update is about lr * sign(grad), which would turn rounding
+        # noise in near-zero D gradients into 2 lr weight differences.
+        step = build_train_step(cfg, lambda _step: 0.0,
+                                load_vgg_features(device=dev))
+        losses = step(TrainState(gen, disc, opt_g, opt_d), src.to(dev),
+                      tgt.to(dev), apply_gp=True, label_noise=noise.to(dev),
+                      gp_alpha=alpha.to(dev)).cpu()
+        results[run] = (losses, grads)
+
+    def compare(a, b):
+        """(loss relative errors, {tensor: max|diff| / max|grad|})."""
+        (la, ga), (lb, gb) = results[a], results[b]
+        rel = ((la - lb).abs() / lb.abs()).tolist()
+        shares = {f"{net} {n}": ((ga[net][n] - want).abs().max()
+                                 / want.abs().max().clamp_min(1e-30)).item()
+                  for net in ("G", "D") for n, want in gb[net].items()}
+        return rel, shares
+
+    rel, shares = compare("card", "cpu")
+    _, floor = compare("cpu_perturbed", "cpu")
+    name, share = max(shares.items(), key=lambda kv: kv[1])
+    median = float(np.median(list(shares.values())))
+    out = {"losses_card": dict(zip(METRICS, results["card"][0].tolist())),
+           "losses_cpu": dict(zip(METRICS, results["cpu"][0].tolist())),
+           "loss_rel_err": dict(zip(METRICS, rel)),
+           "worst_grad_share": share, "worst_grad": name,
+           "median_grad_share": median, "grad_tensors": len(shares),
+           "floor_median_grad_share": float(np.median(list(floor.values()))),
+           "floor_worst_grad_share": max(floor.values()),
+           "loss_rtol": STEP_LOSS_RTOL, "grad_worst_tol": STEP_GRAD_WORST,
+           "grad_median_tol": STEP_GRAD_MEDIAN}
+    record["step_card_vs_cpu"] = out
+    print(f"training step, card vs CPU: loss rel err {max(rel):.3e} (tol "
+          f"{STEP_LOSS_RTOL}); gradients over {len(shares)} tensors, "
+          f"max|diff| as a share of max|grad|: median {median:.3e} (tol "
+          f"{STEP_GRAD_MEDIAN}), worst {share:.3e} at {name} (tol "
+          f"{STEP_GRAD_WORST}); float32 floor (CPU, weights x (1 + 1e-7 N)): "
+          f"median {out['floor_median_grad_share']:.3e}, worst "
+          f"{out['floor_worst_grad_share']:.3e}", flush=True)
+    if not (max(rel) <= STEP_LOSS_RTOL and share <= STEP_GRAD_WORST
+            and median <= STEP_GRAD_MEDIAN):
+        raise AssertionError(f"card and CPU training steps disagree: {out}")
+    return out
+
+
 def per_forward(rows, key, pick):
     """Sum of `key` over one serving forward's launches (rows picked)."""
     return sum(r[key] * r["per_forward"] for r in rows if pick(r))
@@ -298,8 +700,6 @@ def chart_pairs(n, size, seed):
 
 
 def phase_serve(torch, ka, kb, args, record):
-    from PIL import Image  # the runner decodes and writes with it
-
     from tactile_gan_torch.core.config import TrainConfig
     from tactile_gan_torch.eval import runner
     from tactile_gan_torch.eval.visualize import can_plot
@@ -325,13 +725,7 @@ def phase_serve(torch, ka, kb, args, record):
         for k in ("gen", "disc", "l1", "gp", "per"):
             np.save(os.path.join(model_dir, f"{k}loss.npy"),
                     np.linspace(1.0, 0.2, 10).astype(np.float32))
-        src_dir = os.path.join(root, "data", "test", "source")
-        tac_dir = os.path.join(root, "data", "test", "tactile")
-        os.makedirs(src_dir)
-        os.makedirs(tac_dir)
-        for i, (s, t) in enumerate(pairs):
-            Image.fromarray(s).save(os.path.join(src_dir, f"s_{i:04d}.png"))
-            Image.fromarray(t).save(os.path.join(tac_dir, f"t_{i:04d}.tiff"))
+        write_pairs(root, "test", pairs)
 
         # The generator alone, through the port's load_model: the first
         # calls warm cuDNN's algorithm choice and the allocator.
@@ -416,12 +810,26 @@ def phase_serve(torch, ka, kb, args, record):
     return out
 
 
+def kernel_entry(name, source, replaces, launches, rows, weight, per, card):
+    """One entry of the kernels line: sums over the rows' launches of one
+    training step (``weight`` gives each row's launch count)."""
+    heaviest = max(rows, key=lambda r: r["bound_ms"] * weight(r))
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: sum(r[k] * weight(r) for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": heaviest["bound_by"], "per": per, "card": card}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--images", type=int, default=126,
                     help="synthetic test pairs (126 leaves a padded tail at "
                          "eval_batch 4)")
+    ap.add_argument("--train_pairs", type=int, default=48,
+                    help="synthetic training pairs (12 steps an epoch)")
     ap.add_argument("--out", default=os.path.join("perf_out",
                                                   "chip_smoke.json"))
     args = ap.parse_args()
@@ -434,16 +842,18 @@ def main() -> int:
         return 1
     from tactile_gan_torch.ops.kernels import build
     from tactile_gan_torch.ops.kernels import conv3x3 as kb
+    from tactile_gan_torch.ops.kernels import conv3x3_wgrad as kd
     from tactile_gan_torch.ops.kernels import instance_norm as ka
 
-    # f32 results are compared: no TF32 in the library convs or matmuls.
+    # f32 results are compared: no TF32 in the library convs or matmuls
+    # (the training phase turns cuDNN's TF32 default back on for its run).
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     record = {"card": card, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "seed": args.seed}
+              "cuda": torch.version.cuda, "seed": args.seed, "phase_s": {}}
     t0 = time.perf_counter()
-    build.build_all(["instance_norm_act", "conv3x3"])
+    build.build_all(["instance_norm_act", "conv3x3", "conv3x3_wgrad"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built kernels in {record['build_s']:.1f} s", flush=True)
     for name, log in build.build_logs.items():
@@ -451,33 +861,58 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    phase_edges(torch, ka, kb, args.seed)
-    a_rows, b_rows = phase_kernels(torch, ka, kb, args.seed, record)
-    serve = phase_serve(torch, ka, kb, args, record)
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        res = fn(*a)
+        record["phase_s"][name] = time.perf_counter() - t
+        print(f"phase {name}: {record['phase_s'][name]:.1f} s", flush=True)
+        return res
 
-    launches = {k: sum(run[k] for run in serve["runs"])
-                for k in ("launches_a", "launches_b")}
-    kernels = []
-    pick = serving_rows(1)
-    for name, rows, route_src, replaces, key in (
-            ("instance_norm_act", a_rows,
-             "tactile_gan_torch/csrc/instance_norm_act.cu",
-             "tactile_gan_tpu/ops/pallas/instance_norm.py:492", "launches_a"),
-            ("conv3x3", b_rows, "tactile_gan_torch/csrc/conv3x3.cu",
-             "tactile_gan_tpu/ops/pallas/conv3x3.py:394", "launches_b")):
-        kernels.append({
-            "name": name, "route": "cuda", "source": route_src,
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": max(r["max_abs_err"] for r in rows if pick(r)),
-            "ms": per_forward(rows, "ms", pick),
-            "plain_ms": per_forward(rows, "plain_ms", pick),
-            "bound_ms": per_forward(rows, "bound_ms", pick),
-            "bound_by": rows[[pick(r) for r in rows].index(True)]["bound_by"],
-            "library_ms": per_forward(rows, "library_ms", pick),
-            "per": "one batch-1 serving forward (all its launches), float32 "
-                   "activations" + (", bf16 operands" if name == "conv3x3" else ""),
-            "card": card})
+    timed("edges", phase_edges, torch, ka, kb, kd, args.seed)
+    a_rows, b_rows = timed("kernels_serving", phase_kernels, torch, ka, kb,
+                           args.seed, record)
+    c_rows, dx_rows, d_rows = timed("kernels_training", phase_train_kernels,
+                                    torch, ka, kb, kd, args.seed, record)
+    train = timed("train", phase_train, torch, ka, kb, kd, args, record)
+    serve = timed("serve", phase_serve, torch, ka, kb, args, record)
+    timed("step_card_vs_cpu", phase_step_card_vs_cpu, torch, args, record)
+
+    # Launches over the main path: the training run, the trained folder
+    # served, and the serving runs.
+    launches = dict(train["launches"])
+    for k in ("instance_norm_act", "conv3x3"):
+        launches[k] += train["serve_launches"][k]
+    launches["instance_norm_act"] += sum(r["launches_a"] for r in serve["runs"])
+    launches["conv3x3"] += sum(r["launches_b"] for r in serve["runs"])
+    fwd = serving_rows(TRAIN_BATCH)
+    a_step = [r for r in a_rows if fwd(r)]
+    b_step = [r for r in b_rows if fwd(r)]
+    per = ("one training step at batch 4, 256x256 (all its launches), "
+           "float32 activations")
+    pallas = "tactile_gan_tpu/ops/pallas/"
+    csrc = "tactile_gan_torch/csrc/"
+    kernels = [
+        kernel_entry("instance_norm_act", csrc + "instance_norm_act.cu",
+                     pallas + "instance_norm.py:492", launches["instance_norm_act"],
+                     a_step, lambda r: r["per_forward"], per, card),
+        kernel_entry("instance_norm_act_backward", csrc + "instance_norm_act.cu",
+                     pallas + "instance_norm.py:383",
+                     launches["instance_norm_act_backward"], c_rows,
+                     lambda r: r["per_step"], per, card),
+        kernel_entry("conv3x3", csrc + "conv3x3.cu", pallas + "conv3x3.py:394",
+                     launches["conv3x3"], b_step, lambda r: r["per_forward"],
+                     per + ", bf16 operands", card),
+        kernel_entry("conv3x3_dgrad", csrc + "conv3x3.cu",
+                     pallas + "conv3x3.py:394", launches["conv3x3_dgrad"],
+                     dx_rows, lambda r: r["per_step"],
+                     per + ", bf16 operands", card),
+        kernel_entry("conv3x3_wgrad", csrc + "conv3x3_wgrad.cu",
+                     pallas + "conv3x3.py:509", launches["conv3x3_wgrad"],
+                     d_rows, lambda r: r["per_step"],
+                     per + ", bf16 operands", card),
+    ]
     record["kernels"] = kernels
+    record["main_path_launches"] = launches
     record["per_forward"] = {
         name: {f"batch{b}": {k: per_forward(rows, k, serving_rows(b))
                              for k in ("ms", "plain_ms", "bound_ms",

@@ -5,6 +5,16 @@
 // it is a plain channels-last conv. The 12-tap B-matrix embedding existed to
 // fill the TPU's 128 MXU lanes and is not carried over.
 //
+// Two uses, two entry points on one kernel body: the forward
+// (conv3x3_forward, Co 16/32/64) and the input gradient (conv3x3_dgrad): the
+// transpose of a zero-padded 3x3/s1 conv is the same conv with the
+// rotated-transposed weight (ops/packed_row.py _rot_t), whose output width
+// is the forward's Cin, up to 384 at UNet++ nf=64. The grid walks the output
+// channels in CO-wide tiles (blockIdx.z = image * tiles + tile); the weight
+// arrives padded to a whole number of tiles and stores past the true width
+// are skipped. The dgrad entry launches its own __global__ wrappers so a
+// profile tells the two uses apart.
+//
 // Bound: operations. At the serving shapes (256x256, Cin 64..384, Co 64) the
 // function does 2*9*Cin*64 flops per pixel against (Cin + 64) * itemsize
 // bytes, near or above the card's ~295 flop/byte ridge for bf16, so the
@@ -117,10 +127,13 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 
 // bf16 operands, float32 accumulation (tensor cores through mma.sync).
 // Dynamic shared memory: two stages of [halo pixels][16] + [9 * CO][16] bf16.
+// w is [9][co_rows][cin_pad] (co_rows = tiles * CO); y has co_total
+// channels.
 template <typename T, int CO>
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_bf16_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                    T* __restrict__ y, int h, int wd, int cin, int cin_pad) {
+__device__ __forceinline__ void conv3x3_bf16_body(
+    const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    T* __restrict__ y, int h, int wd, int cin, int cin_pad, int co_total,
+    int co_tiles) {
   constexpr int kNT = CO / 8;                  // n8 tiles
   constexpr int kXElems = kHaloPix * kKC;
   constexpr int kWElems = 9 * CO * kKC;
@@ -129,7 +142,9 @@ conv3x3_bf16_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w
   constexpr bool kF32In = sizeof(T) == 4;
   extern __shared__ __align__(128) __nv_bfloat16 smem[];
 
-  const int w0 = blockIdx.x * kMW, h0 = blockIdx.y * kMH, img = blockIdx.z;
+  const int w0 = blockIdx.x * kMW, h0 = blockIdx.y * kMH;
+  const int img = blockIdx.z / co_tiles, tile = blockIdx.z % co_tiles;
+  const int co_rows = co_tiles * CO;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* ximg = x + (size_t)img * h * wd * cin;
   const int slices = cin_pad / kKC;
@@ -157,7 +172,8 @@ conv3x3_bf16_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w
     const int c0 = s * kKC;
     for (int u = threadIdx.x; u < kWUnits; u += kThreads) {
       const int row = u >> 1, c = u & 1;  // row = tap * CO + co
-      cp_async16(ws + swz(row, c), w + (size_t)row * cin_pad + c0 + c * 8, 16);
+      const size_t src = (size_t)(row / CO) * co_rows + tile * CO + row % CO;
+      cp_async16(ws + swz(row, c), w + src * cin_pad + c0 + c * 8, 16);
     }
   };
   auto issue_input = [&](int s, __nv_bfloat16* xs) {
@@ -254,7 +270,8 @@ conv3x3_bf16_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w
   const int oh = h0 + warp;
   if (oh >= h) return;
   const int g = lane >> 2, cc = 2 * (lane & 3);
-  T* yrow = y + ((size_t)img * h + oh) * wd * CO;
+  const int co0 = tile * CO;
+  T* yrow = y + ((size_t)img * h + oh) * wd * co_total + co0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -263,10 +280,28 @@ conv3x3_bf16_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w
       if (ow >= wd) continue;
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
-        store2(yrow + (size_t)ow * CO + j * 8 + cc, acc[i][j][2 * half],
-               acc[i][j][2 * half + 1]);
+        if (co0 + j * 8 < co_total)  // co_total is a multiple of 8
+          store2(yrow + (size_t)ow * co_total + j * 8 + cc,
+                 acc[i][j][2 * half], acc[i][j][2 * half + 1]);
     }
   }
+}
+
+template <typename T, int CO>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3_bf16_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                    T* __restrict__ y, int h, int wd, int cin, int cin_pad,
+                    int co_total, int co_tiles) {
+  conv3x3_bf16_body<T, CO>(x, w, y, h, wd, cin, cin_pad, co_total, co_tiles);
+}
+
+template <typename T, int CO>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3_dgrad_bf16_kernel(const T* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ w,
+                          T* __restrict__ y, int h, int wd, int cin,
+                          int cin_pad, int co_total, int co_tiles) {
+  conv3x3_bf16_body<T, CO>(x, w, y, h, wd, cin, cin_pad, co_total, co_tiles);
 }
 
 __device__ __forceinline__ void load4_f32(const float* p, float* v) {
@@ -294,16 +329,19 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-// float32 operands and accumulation on the CUDA cores.
+// float32 operands and accumulation on the CUDA cores. w is
+// [9][Cin][co_rows] float32 (co_rows = tiles * CO).
 template <typename T, int CO>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_f32_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                   T* __restrict__ y, int h, int wd, int cin) {
+__device__ __forceinline__ void conv3x3_f32_body(
+    const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
+    int h, int wd, int cin, int co_total, int co_tiles) {
   constexpr int kCH = CO / 2;  // output channels per thread
   __shared__ float xs[kIH * kIW * kKCFP];
   __shared__ __align__(16) float ws[9 * kKCF * CO];
 
-  const int w0 = blockIdx.x * kTW, h0 = blockIdx.y * kTH, img = blockIdx.z;
+  const int w0 = blockIdx.x * kTW, h0 = blockIdx.y * kTH;
+  const int img = blockIdx.z / co_tiles, tile = blockIdx.z % co_tiles;
+  const int co_rows = co_tiles * CO;
   const int p = threadIdx.x & 127, part = threadIdx.x >> 7;
   const int ph = p / kTW, pw = p % kTW;
 
@@ -323,9 +361,10 @@ conv3x3_f32_kernel(const T* __restrict__ x, const float* __restrict__ w,
     }
     constexpr int kWUnits = 9 * kKCF * CO / 4;
     for (int u = threadIdx.x; u < kWUnits; u += kThreads) {
-      const int tap = u / (kKCF * CO / 4), r = u % (kKCF * CO / 4);
+      const int row = u / (CO / 4), q = u % (CO / 4);  // row = tap * 8 + ci
+      const int tap = row / kKCF, ci = row % kKCF;
       reinterpret_cast<float4*>(ws)[u] = reinterpret_cast<const float4*>(
-          w + ((size_t)tap * cin + c0) * CO)[r];
+          w + ((size_t)tap * cin + c0 + ci) * co_rows + tile * CO)[q];
     }
     __syncthreads();
 #pragma unroll
@@ -343,65 +382,122 @@ conv3x3_f32_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 
   const int oh = h0 + ph, ow = w0 + pw;
+  const int co0 = tile * CO + part * kCH;
   if (oh < h && ow < wd) {
-    T* out = y + (((size_t)img * h + oh) * wd + ow) * CO + part * kCH;
+    T* out = y + (((size_t)img * h + oh) * wd + ow) * co_total + co0;
 #pragma unroll
-    for (int k = 0; k < kCH; k += 4) store4(out + k, acc + k);
+    for (int k = 0; k < kCH; k += 4)
+      if (co0 + k < co_total) store4(out + k, acc + k);
   }
 }
 
 template <typename T, int CO>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_f32_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   T* __restrict__ y, int h, int wd, int cin, int co_total,
+                   int co_tiles) {
+  conv3x3_f32_body<T, CO>(x, w, y, h, wd, cin, co_total, co_tiles);
+}
+
+template <typename T, int CO>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_dgrad_f32_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                         T* __restrict__ y, int h, int wd, int cin,
+                         int co_total, int co_tiles) {
+  conv3x3_f32_body<T, CO>(x, w, y, h, wd, cin, co_total, co_tiles);
+}
+
+// One kernel instance's dynamic shared memory limit, raised once.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, bool& configured) {
+  if (configured) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) configured = true;
+  return err;
+}
+
+template <typename T, int CO>
 int launch(const void* x, const void* w, void* y, int n, int h, int wd,
-           int cin, int cin_pad, int compute_bf16, cudaStream_t stream) {
+           int cin, int cin_pad, int co_total, int co_tiles, int compute_bf16,
+           int dgrad, cudaStream_t stream) {
   if (compute_bf16) {
     constexpr int kBytes = 2 * (kHaloPix + 9 * CO) * kKC * 2;
-    static bool configured = false;  // the attribute is per kernel instance
-    if (!configured) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          conv3x3_bf16_kernel<T, CO>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-      if (err != cudaSuccess) return (int)err;
-      configured = true;
-    }
-    const dim3 grid((wd + kMW - 1) / kMW, (h + kMH - 1) / kMH, n);
-    conv3x3_bf16_kernel<T, CO><<<grid, kThreads, kBytes, stream>>>(
+    static bool fwd_configured = false, dgrad_configured = false;
+    auto kernel = dgrad ? conv3x3_dgrad_bf16_kernel<T, CO>
+                        : conv3x3_bf16_kernel<T, CO>;
+    const cudaError_t err = allow_smem(
+        kernel, kBytes, dgrad ? dgrad_configured : fwd_configured);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((wd + kMW - 1) / kMW, (h + kMH - 1) / kMH, n * co_tiles);
+    kernel<<<grid, kThreads, kBytes, stream>>>(
         static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<T*>(y), h, wd, cin, cin_pad);
+        static_cast<T*>(y), h, wd, cin, cin_pad, co_total, co_tiles);
   } else {
-    const dim3 grid((wd + kTW - 1) / kTW, (h + kTH - 1) / kTH, n);
-    conv3x3_f32_kernel<T, CO><<<grid, kThreads, 0, stream>>>(
+    auto kernel = dgrad ? conv3x3_dgrad_f32_kernel<T, CO>
+                        : conv3x3_f32_kernel<T, CO>;
+    const dim3 grid((wd + kTW - 1) / kTW, (h + kTH - 1) / kTH, n * co_tiles);
+    kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(w),
-        static_cast<T*>(y), h, wd, cin);
+        static_cast<T*>(y), h, wd, cin, co_total, co_tiles);
   }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_co(const void* x, const void* w, void* y, int n, int h, int wd,
-                int cin, int cin_pad, int co, int compute_bf16,
-                cudaStream_t stream) {
-  switch (co) {
-    case 16: return launch<T, 16>(x, w, y, n, h, wd, cin, cin_pad, compute_bf16, stream);
-    case 32: return launch<T, 32>(x, w, y, n, h, wd, cin, cin_pad, compute_bf16, stream);
-    case 64: return launch<T, 64>(x, w, y, n, h, wd, cin, cin_pad, compute_bf16, stream);
+                int cin, int cin_pad, int co_total, int co_tile, int co_tiles,
+                int compute_bf16, int dgrad, cudaStream_t stream) {
+  switch (co_tile) {
+    case 16: return launch<T, 16>(x, w, y, n, h, wd, cin, cin_pad, co_total,
+                                  co_tiles, compute_bf16, dgrad, stream);
+    case 32: return launch<T, 32>(x, w, y, n, h, wd, cin, cin_pad, co_total,
+                                  co_tiles, compute_bf16, dgrad, stream);
+    case 64: return launch<T, 64>(x, w, y, n, h, wd, cin, cin_pad, co_total,
+                                  co_tiles, compute_bf16, dgrad, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int run(const void* x, const void* w, void* y, int n, int h, int wd, int cin,
+        int cin_pad, int co_total, int co_tile, int in_dtype, int compute_bf16,
+        int dgrad, void* stream) {
+  if (co_total <= 0 || co_total % 8 || co_total > co_tile * 64)
+    return (int)cudaErrorInvalidValue;
+  const int co_tiles = (co_total + co_tile - 1) / co_tile;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == 1)
+    return dispatch_co<__nv_bfloat16>(x, w, y, n, h, wd, cin, cin_pad,
+                                      co_total, co_tile, co_tiles,
+                                      compute_bf16, dgrad, s);
+  return dispatch_co<float>(x, w, y, n, h, wd, cin, cin_pad, co_total,
+                            co_tile, co_tiles, compute_bf16, dgrad, s);
 }
 
 }  // namespace
 
 // x: (N, H, W, Cin) in_dtype (0 float32, 1 bfloat16); y: (N, H, W, Co) of the
 // same dtype. w: [9][Co][cin_pad] bfloat16 when compute_bf16 is 1 (cin_pad a
-// multiple of 16), else [9][Cin][Co] float32 (cin_pad == Cin). Returns
-// cudaGetLastError().
+// multiple of 16), else [9][Cin][Co] float32 (cin_pad == Cin). Co is 16, 32
+// or 64. Returns cudaGetLastError().
 extern "C" int conv3x3_forward(const void* x, const void* w, void* y, int n,
                                int h, int wd, int cin, int cin_pad, int co,
                                int in_dtype, int compute_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 1)
-    return dispatch_co<__nv_bfloat16>(x, w, y, n, h, wd, cin, cin_pad, co,
-                                      compute_bf16, s);
-  return dispatch_co<float>(x, w, y, n, h, wd, cin, cin_pad, co, compute_bf16, s);
+  return run(x, w, y, n, h, wd, cin, cin_pad, co, co, in_dtype, compute_bf16,
+             0, stream);
+}
+
+// The input gradient: g (N, H, W, Co_fwd) in_dtype -> dx (N, H, W, co_total)
+// of the same dtype, co_total = the forward's Cin (a multiple of 8). w is the
+// rotated-transposed weight laid out as for the forward with co_total padded
+// to a multiple of co_tile (16, 32 or 64): [9][co_rows][cin_pad] bfloat16 or
+// [9][Co_fwd][co_rows] float32. Returns cudaGetLastError().
+extern "C" int conv3x3_dgrad(const void* g, const void* w, void* dx, int n,
+                             int h, int wd, int cin, int cin_pad, int co_total,
+                             int co_tile, int in_dtype, int compute_bf16,
+                             void* stream) {
+  return run(g, w, dx, n, h, wd, cin, cin_pad, co_total, co_tile, in_dtype,
+             compute_bf16, 1, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {
