@@ -7,12 +7,16 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each raising on failure (each prints its seconds):
   0. build the hand-written kernels from tactile_gan_torch/csrc (one nvcc
-     per source, in parallel) and print ptxas's register/spill report;
+     per source, in parallel) and print ptxas's registers and spills for
+     each kernel;
   1. hold each kernel against its plain PyTorch version on the card at
      shapes off the main path (partial tiles, channel counts that are not a
      multiple of 64, several output-channel tiles), in float32 and bfloat16:
      A and B forward, C (instance-norm backward), B-dx and D (the conv's
-     input and weight gradients);
+     input and weight gradients); and kernel E (conv3x3_p1, conv3x3_p1_h)
+     off B's domain: Cin and Co from 1 to 96, odd H and W, partial tiles,
+     batches of 1 and 3, float32 and bf16 inputs, both compute dtypes, through
+     both names;
   2. the same at every shape the serving forward and the training step give
      each kernel, with times: the kernel, its plain version and one library
      call computing the same function (a yardstick only: the port never
@@ -35,7 +39,14 @@ Phases, each raising on failure (each prints its seconds):
      where matplotlib is not installed; the runner says so), with the
      launch counts of both forward kernels; the card's output for one image
      must match the same weights run on the CPU through the plain path;
-  5. one training step on the card against the same step on the CPU (plain
+  5. probe_conv: the conv probe entry point
+     (``tactile_gan_torch.cli.probe_conv``, the port of
+     scripts/probe_pallas_conv.py) at its defaults, B4, 256x256, three
+     (Cin, Co) pairs, on cuda. The launch counters must equal the calls the
+     probe made through conv3x3_p1, conv3x3_p1_h and conv3x3 (kernels E and
+     B); then E, through both names, against its plain version at the
+     probe's inputs, with its ms, the plain and library ms and the bound;
+  6. one training step on the card against the same step on the CPU (plain
      versions), from the same weights and injected draws, at nf=16, 64x64,
      batch 2, float32 compute with TF32 off, learning rate 0: the losses
      and every gradient before the Adam update must agree within limits
@@ -94,7 +105,12 @@ TRAIN_PAIRS = 48  # synthetic training pairs: 12 steps an epoch
 PER_STEP = {"instance_norm_act": A_PER_FORWARD,
             "instance_norm_act_backward": A_PER_FORWARD,
             "conv3x3": B_PER_FORWARD, "conv3x3_dgrad": B_PER_FORWARD,
-            "conv3x3_wgrad": B_PER_FORWARD}
+            "conv3x3_wgrad": B_PER_FORWARD, "conv3x3_p1": 0,
+            "conv3x3_p1_h": 0}
+# Kernel E's output against the library conv in the probe: the library
+# rounds its output to bf16 (2^-9 of each value) and sums the same bf16
+# products in another order; relative to the output's max.
+PROBE_REL_ERR = 2.0 ** -7
 # Card against CPU, one training step at float32 compute with TF32 off
 # (nf=16, 64x64, batch 2). Losses relative. Gradients: each tensor's max
 # |diff| as a share of its max |grad|. The step's gradients are piecewise
@@ -184,6 +200,12 @@ SUM_SHARE = 1e-4
 EDGE_A = [((3, 7, 5, 24), "leaky_relu", True), ((2, 9, 13, 136), None, False),
           ((1, 1, 1, 8), "relu", True)]
 EDGE_B = [((2, 37, 53, 24), 32), ((1, 9, 17, 8), 16), ((1, 40, 70, 40), 64)]
+# Kernel E: every (Cin, Co) of these, plus one wider pair (two output-channel
+# tiles), at (N, H, W) taken in turn from E_NHW (odd sizes, partial 8x32 and
+# 8x16 tiles, a single pixel, batches of 1 and 3).
+E_CIN = (1, 3, 5, 13, 32, 64)
+E_CO = (1, 5, 6, 24, 40, 64)
+E_NHW = ((1, 9, 37), (3, 17, 45), (1, 1, 1), (3, 7, 5), (1, 33, 31))
 
 
 def check_share(name, got, want):
@@ -275,6 +297,30 @@ def phase_edges(torch, ka, kb, kd, seed):
                                 kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd))
             print(f"B-dx/D edge {list(shape)} co={co} {dn}/{cn}: max|diff| "
                   f"{err:.3e} / {err_d:.3e}", flush=True)
+    # Kernel E off B's domain; its output is float32 whatever the input.
+    pairs = [(c, co) for c in E_CIN for co in E_CO] + [(96, 96)]
+    for i, (c, co) in enumerate(pairs):
+        n, h, w = E_NHW[i % len(E_NHW)]
+        worst = 0.0
+        for in_dt, cd in ((torch.float32, torch.bfloat16),
+                          (torch.bfloat16, torch.bfloat16),
+                          (torch.float32, torch.float32),
+                          (torch.bfloat16, torch.float32)):
+            dn, cn = str(in_dt).split(".")[1], str(cd).split(".")[1]
+            x = torch.randn((n, h, w, c), device="cuda", generator=gen).to(in_dt)
+            k = 0.1 * torch.randn((3, 3, c, co), device="cuda", generator=gen)
+            want = kb.conv3x3_p1_plain(x, k, compute_dtype=cd)
+            for fn in (kb.conv3x3_p1, kb.conv3x3_p1_h):
+                y = fn(x, k, compute_dtype=cd)
+                torch.cuda.synchronize()
+                if y.dtype != torch.float32 or y.shape != (n, h, w, co):
+                    raise AssertionError(f"E edge: {fn.__name__} gave "
+                                         f"{y.dtype} {tuple(y.shape)}")
+                worst = max(worst, check_close(
+                    f"E edge {(n, h, w, c)} co {co} {dn}/{cn} {fn.__name__}",
+                    y, want, "float32"))
+        print(f"E edge {[n, h, w, c]} co={co} (f32/bf16 inputs, both compute "
+              f"dtypes, both names): max|diff| {worst:.3e}", flush=True)
 
 
 def phase_kernels(torch, ka, kb, seed, record):
@@ -481,13 +527,16 @@ def launch_counts(ka, kb, kd):
             "instance_norm_act_backward": ka.backward_kernel.launches,
             "conv3x3": kb.conv3x3.launches,
             "conv3x3_dgrad": kb.dgrad_kernel.launches,
-            "conv3x3_wgrad": kd.conv3x3_wgrad.launches}
+            "conv3x3_wgrad": kd.conv3x3_wgrad.launches,
+            "conv3x3_p1": kb.conv3x3_p1.launches,
+            "conv3x3_p1_h": kb.conv3x3_p1_h.launches}
 
 
 def reset_counts(ka, kb, kd):
     ka.instance_norm_act.launches = ka.backward_kernel.launches = 0
     kb.conv3x3.launches = kb.dgrad_kernel.launches = 0
     kd.conv3x3_wgrad.launches = 0
+    kb.conv3x3_p1.launches = kb.conv3x3_p1_h.launches = 0
 
 
 def phase_train(torch, ka, kb, kd, args, record):
@@ -866,6 +915,63 @@ def phase_serve(torch, ka, kb, args, record):
     return out
 
 
+def phase_probe(torch, ka, kb, kd, record):
+    """The conv probe entry point at its defaults on cuda with the launch
+    counters around it; then kernel E, through both names, against its
+    plain version at the probe's inputs, with times and bounds."""
+    from tactile_gan_torch.cli import probe_conv
+
+    reset_counts(ka, kb, kd)
+    res = probe_conv.main([])
+    torch.cuda.synchronize()
+    counts = launch_counts(ka, kb, kd)
+    want = {k: res["calls"].get(k, 0) for k in counts}
+    print(f"probe launches {counts}; calls made {res['calls']}", flush=True)
+    if counts != want:
+        raise AssertionError(f"probe launches {counts}, expected {want}")
+    rows = {"conv3x3_p1": [], "conv3x3_p1_h": []}
+    for (cin, co, xn, kn), shape in zip(
+            probe_conv.inputs(res["batch"], res["size"]), res["shapes"]):
+        if shape["rel_err"] > PROBE_REL_ERR:
+            raise AssertionError(f"probe cin {cin} co {co}: kernel E against "
+                                 f"the library, rel err {shape['rel_err']:.3e}"
+                                 f" > {PROBE_REL_ERR:.3e}")
+        x, k = torch.from_numpy(xn).cuda(), torch.from_numpy(kn).cuda()
+        ref = kb.conv3x3_p1_plain(x, k)
+        plain_ms, _ = cuda_ms(lambda: kb.conv3x3_p1_plain(x, k))
+        # Bytes: x and y in float32 once, the weight as the kernel reads it
+        # (bf16); operations at the bf16 tensor-core rate.
+        flops = 2 * 9 * cin * co * x.numel() // cin
+        nbytes = (x.numel() + ref.numel()) * 4 + 9 * cin * co * 2
+        t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        for name, label in (("conv3x3_p1", "E p1"), ("conv3x3_p1_h", "E p1_h")):
+            y = getattr(kb, name)(x, k)
+            torch.cuda.synchronize()
+            err = check_close(f"E {name} probe cin {cin} co {co}", y, ref,
+                              "float32")
+            row = {"shape": list(x.shape), "co": co, "dtype": "float32",
+                   "compute": "bfloat16", "max_abs_err": err,
+                   "tol": TOL["float32"], "rel_err_vs_library":
+                   shape["rel_err"], "flops": flops,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "ms": shape["ms"][label], "plain_ms": plain_ms,
+                   "library_ms": shape["ms"]["library"],
+                   "kernel_b_ms": shape["ms"]["B"],
+                   "tflops": shape["tflops"][label]}
+            rows[name].append(row)
+            print(f"E {name} cin {cin} co {co}: max|diff| {err:.3e} ms "
+                  f"{row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) plain "
+                  f"{plain_ms:.4f} library {row['library_ms']:.4f} kernel B "
+                  f"{row['kernel_b_ms']:.4f} bound {row['bound_ms']:.4f} "
+                  f"({row['bound_by']})", flush=True)
+    out = {"launches": counts, "calls": res["calls"], "rows": rows,
+           "batch": res["batch"], "size": res["size"]}
+    record["probe_conv"] = out
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, rows, weight, per, card):
     """One entry of the kernels line: sums over the rows' launches of one
     training step (``weight`` gives each row's launch count)."""
@@ -910,10 +1016,11 @@ def main() -> int:
     build.build_all(["instance_norm_act", "conv3x3", "conv3x3_wgrad"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built kernels in {record['build_s']:.1f} s", flush=True)
-    for name, log in build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    record["ptxas"] = {name: build.ptxas_report(log)
+                       for name, log in build.build_logs.items()}
+    for name, report in record["ptxas"].items():
+        for kernel, line in sorted(report.items()):
+            print(f"  {name}: {kernel}: {line}")
 
     def timed(name, fn, *a):
         t = time.perf_counter()
@@ -929,16 +1036,19 @@ def main() -> int:
                                     torch, ka, kb, kd, args.seed, record)
     train = timed("train", phase_train, torch, ka, kb, kd, args, record)
     serve = timed("serve", phase_serve, torch, ka, kb, args, record)
+    probe = timed("probe_conv", phase_probe, torch, ka, kb, kd, record)
     timed("step_card_vs_cpu", phase_step_card_vs_cpu, torch, ka, kb, args,
           record)
 
-    # Launches over the main path: the training run, the trained folder
-    # served, and the serving runs.
+    # Launches over the main paths: the training run, the trained folder
+    # served, and the serving runs; kernel E's in the conv probe.
     launches = dict(train["launches"])
     for k in ("instance_norm_act", "conv3x3"):
         launches[k] += train["serve_launches"][k]
     launches["instance_norm_act"] += sum(r["launches_a"] for r in serve["runs"])
     launches["conv3x3"] += sum(r["launches_b"] for r in serve["runs"])
+    for k in ("conv3x3_p1", "conv3x3_p1_h"):
+        launches[k] = probe["launches"][k]
     fwd = serving_rows(TRAIN_BATCH)
     a_step = [r for r in a_rows if fwd(r)]
     b_step = [r for r in b_rows if fwd(r)]
@@ -966,6 +1076,14 @@ def main() -> int:
                      d_rows, lambda r: r["per_step"],
                      per + ", bf16 operands", card),
     ]
+    # Kernel E: its numbers summed over the three pairs of one probe pass.
+    probe_per = (f"one probe pass at B{probe['batch']}, {probe['size']}\u00b2, "
+                 "three (Cin, Co) pairs, float32 in and out, bf16 operands")
+    for name, line in (("conv3x3_p1", 160), ("conv3x3_p1_h", 289)):
+        kernels.append(kernel_entry(
+            name, csrc + "conv3x3.cu", pallas + f"conv3x3.py:{line}",
+            launches[name], probe["rows"][name], lambda r: 1, probe_per,
+            card))
     record["kernels"] = kernels
     record["main_path_launches"] = launches
     record["per_forward"] = {

@@ -15,6 +15,22 @@
 // are skipped. The dgrad entry launches its own __global__ wrappers so a
 // profile tells the two uses apart.
 //
+// Kernel E (conv3x3_p1_forward) is the same body again, for the Pallas probe
+// kernels conv3x3_p1 (W-pairs) and conv3x3_p1_h (H-pairs) of that file.
+// W-pairing, H-pairing and the packed row are three ways to fill the TPU's
+// 128 MXU lanes with a conv of at most 64 channels; all three compute one
+// function, a channels-last 3x3/s1/p1 conv with operands rounded to the
+// compute dtype and float32 sums, which is what this body computes. The
+// pairing (and its even W or H) has no counterpart here. E instantiates the
+// body with the template flag TAIL, which widens B's domain to the Pallas
+// functions': any Cin >= 1 (a Cin that is not a multiple of 8 is loaded
+// element by element through registers and zero-filled past Cin, since its
+// rows are not whole 16-byte chunks), any Co >= 1 (the weight zero-padded
+// to whole tiles, stores masked per channel, paired where Co allows) and a
+// float32 output whatever the input dtype. TAIL is a template parameter,
+// not a runtime branch, so B's instantiations compile as before; E has its
+// own __global__ names.
+//
 // Bound: operations. At the serving shapes (256x256, Cin 64..384, Co 64) the
 // function does 2*9*Cin*64 flops per pixel against (Cin + 64) * itemsize
 // bytes, near or above the card's ~295 flop/byte ridge for bf16, so the
@@ -39,10 +55,12 @@
 //    eight rows of each ldmatrix phase fall in distinct banks.
 //  * float32 compute: the CUDA cores (one pixel x Co/2 channels per thread,
 //    FMA in float32) over an 8 x 16 tile.
-//  * The output dtype follows the input dtype; accumulation is float32.
+//  * The output dtype follows the input dtype (float32 for E); accumulation
+//    is float32.
 //  * Weights arrive pre-laid by the wrapper: [9][Co][Cin_pad] bf16 (Cin_pad a
-//    multiple of 16, zero-filled) for bf16 compute, [9][Cin][Co] float32
-//    otherwise. Cin must be a multiple of 8 and Co one of 16, 32, 64.
+//    multiple of 16, zero-filled) for bf16 compute, [9][Cin_pad][Co] float32
+//    (Cin_pad a multiple of 8) otherwise, Co zero-padded to whole tiles. B
+//    and B-dx need Cin and Co to be multiples of 8.
 // Left for later work: wgmma/TMA, a persistent grid, deeper pipelines.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,14 +143,20 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // bf16 operands, float32 accumulation (tensor cores through mma.sync).
 // Dynamic shared memory: two stages of [halo pixels][16] + [9 * CO][16] bf16.
 // w is [9][co_rows][cin_pad] (co_rows = tiles * CO); y has co_total
-// channels.
-template <typename T, int CO>
+// channels. TAIL (kernel E): any Cin and co_total, float32 output.
+template <typename T, typename OUT, int CO, bool TAIL>
 __device__ __forceinline__ void conv3x3_bf16_body(
     const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    T* __restrict__ y, int h, int wd, int cin, int cin_pad, int co_total,
+    OUT* __restrict__ y, int h, int wd, int cin, int cin_pad, int co_total,
     int co_tiles) {
   constexpr int kNT = CO / 8;                  // n8 tiles
   constexpr int kXElems = kHaloPix * kKC;
@@ -140,7 +164,13 @@ __device__ __forceinline__ void conv3x3_bf16_body(
   constexpr int kStage = kXElems + kWElems;
   constexpr int kWUnits = 9 * CO * 2;
   constexpr bool kF32In = sizeof(T) == 4;
+  static_assert(!TAIL || sizeof(OUT) == 4, "kernel E writes float32");
   extern __shared__ __align__(128) __nv_bfloat16 smem[];
+  // E with Cin not a multiple of 8: a pixel's channels are not whole
+  // 16-byte chunks, so every chunk is loaded element by element into
+  // registers (zero past Cin) and stored as bf16 like a float32 input.
+  const bool scalar = TAIL && cin % 8 != 0;
+  const bool staged = kF32In || scalar;
 
   const int w0 = blockIdx.x * kMW, h0 = blockIdx.y * kMH;
   const int img = blockIdx.z / co_tiles, tile = blockIdx.z % co_tiles;
@@ -166,7 +196,7 @@ __device__ __forceinline__ void conv3x3_bf16_body(
     }
   }
 
-  float4 xreg[kXPerThread][2];  // float32 input in flight (kF32In only)
+  float4 xreg[kXPerThread][2];  // staged input in flight (float32 or E's)
 
   auto issue_weights = [&](int s, __nv_bfloat16* ws) {
     const int c0 = s * kKC;
@@ -178,11 +208,21 @@ __device__ __forceinline__ void conv3x3_bf16_body(
   };
   auto issue_input = [&](int s, __nv_bfloat16* xs) {
     const int c0 = s * kKC;
-    const bool ch_ok = c0 + (threadIdx.x & 1) * 8 < cin;  // this unit's chunk
+    const int cs = c0 + (threadIdx.x & 1) * 8;  // this unit's first channel
+    const bool ch_ok = cs < cin;
 #pragma unroll
     for (int k = 0; k < kXPerThread; ++k) {
       if (xdst[k] < 0) continue;
       const bool ok = xsrc[k] != nullptr && ch_ok;
+      if (scalar) {
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          v[i] = ok && cs + i < cin ? to_f32(xsrc[k][c0 + i]) : 0.f;
+        xreg[k][0] = make_float4(v[0], v[1], v[2], v[3]);
+        xreg[k][1] = make_float4(v[4], v[5], v[6], v[7]);
+        continue;
+      }
       if constexpr (kF32In) {
         const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
         xreg[k][0] = xreg[k][1] = z;
@@ -198,7 +238,7 @@ __device__ __forceinline__ void conv3x3_bf16_body(
     }
   };
   auto store_input = [&](__nv_bfloat16* xs) {
-    if constexpr (kF32In) {
+    if (staged) {
 #pragma unroll
       for (int k = 0; k < kXPerThread; ++k)
         if (xdst[k] >= 0)
@@ -271,7 +311,7 @@ __device__ __forceinline__ void conv3x3_bf16_body(
   if (oh >= h) return;
   const int g = lane >> 2, cc = 2 * (lane & 3);
   const int co0 = tile * CO;
-  T* yrow = y + ((size_t)img * h + oh) * wd * co_total + co0;
+  OUT* yrow = y + ((size_t)img * h + oh) * wd * co_total + co0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -279,10 +319,23 @@ __device__ __forceinline__ void conv3x3_bf16_body(
       const int ow = w0 + i * 16 + g + half * 8;
       if (ow >= wd) continue;
 #pragma unroll
-      for (int j = 0; j < kNT; ++j)
-        if (co0 + j * 8 < co_total)  // co_total is a multiple of 8
-          store2(yrow + (size_t)ow * co_total + j * 8 + cc,
-                 acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      for (int j = 0; j < kNT; ++j) {
+        OUT* p = yrow + (size_t)ow * co_total + j * 8 + cc;
+        const float a = acc[i][j][2 * half], b = acc[i][j][2 * half + 1];
+        if constexpr (TAIL) {
+          // Pairs where co_total is even (8-byte aligned), else one channel
+          // at a time.
+          const int c = co0 + j * 8 + cc;
+          if (co_total % 2 == 0 && c < co_total) {
+            store2(p, a, b);
+          } else {
+            if (c < co_total) p[0] = a;
+            if (c + 1 < co_total) p[1] = b;
+          }
+        } else if (co0 + j * 8 < co_total) {  // co_total is a multiple of 8
+          store2(p, a, b);
+        }
+      }
     }
   }
 }
@@ -292,7 +345,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 conv3x3_bf16_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                     T* __restrict__ y, int h, int wd, int cin, int cin_pad,
                     int co_total, int co_tiles) {
-  conv3x3_bf16_body<T, CO>(x, w, y, h, wd, cin, cin_pad, co_total, co_tiles);
+  conv3x3_bf16_body<T, T, CO, false>(x, w, y, h, wd, cin, cin_pad, co_total,
+                                     co_tiles);
 }
 
 template <typename T, int CO>
@@ -301,7 +355,18 @@ conv3x3_dgrad_bf16_kernel(const T* __restrict__ x,
                           const __nv_bfloat16* __restrict__ w,
                           T* __restrict__ y, int h, int wd, int cin,
                           int cin_pad, int co_total, int co_tiles) {
-  conv3x3_bf16_body<T, CO>(x, w, y, h, wd, cin, cin_pad, co_total, co_tiles);
+  conv3x3_bf16_body<T, T, CO, false>(x, w, y, h, wd, cin, cin_pad, co_total,
+                                     co_tiles);
+}
+
+template <typename T, int CO>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3_p1_bf16_kernel(const T* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ w,
+                       float* __restrict__ y, int h, int wd, int cin,
+                       int cin_pad, int co_total, int co_tiles) {
+  conv3x3_bf16_body<T, float, CO, true>(x, w, y, h, wd, cin, cin_pad,
+                                        co_total, co_tiles);
 }
 
 __device__ __forceinline__ void load4_f32(const float* p, float* v) {
@@ -330,11 +395,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
 }
 
 // float32 operands and accumulation on the CUDA cores. w is
-// [9][Cin][co_rows] float32 (co_rows = tiles * CO).
-template <typename T, int CO>
+// [9][cin_pad][co_rows] float32 (co_rows = tiles * CO; cin_pad a multiple
+// of 8, equal to Cin for B). TAIL (kernel E): any Cin and co_total, float32
+// output.
+template <typename T, typename OUT, int CO, bool TAIL>
 __device__ __forceinline__ void conv3x3_f32_body(
-    const T* __restrict__ x, const float* __restrict__ w, T* __restrict__ y,
-    int h, int wd, int cin, int co_total, int co_tiles) {
+    const T* __restrict__ x, const float* __restrict__ w, OUT* __restrict__ y,
+    int h, int wd, int cin, int cin_pad, int co_total, int co_tiles) {
   constexpr int kCH = CO / 2;  // output channels per thread
   __shared__ float xs[kIH * kIW * kKCFP];
   __shared__ __align__(16) float ws[9 * kKCF * CO];
@@ -354,8 +421,17 @@ __device__ __forceinline__ void conv3x3_f32_body(
       const int pix = u >> 1, grp = u & 1;
       const int ih = h0 - 1 + pix / kIW, iw = w0 - 1 + pix % kIW;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (ih >= 0 && ih < h && iw >= 0 && iw < wd)
-        load4_f32(x + (((size_t)img * h + ih) * wd + iw) * cin + c0 + grp * 4, v);
+      if (ih >= 0 && ih < h && iw >= 0 && iw < wd) {
+        const int c = c0 + grp * 4;
+        const T* src = x + (((size_t)img * h + ih) * wd + iw) * cin + c;
+        if (TAIL && cin % 8) {  // E: one channel at a time, zero past Cin
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (c + i < cin) v[i] = to_f32(src[i]);
+        } else {
+          load4_f32(src, v);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) xs[pix * kKCFP + grp * 4 + i] = v[i];
     }
@@ -364,7 +440,7 @@ __device__ __forceinline__ void conv3x3_f32_body(
       const int row = u / (CO / 4), q = u % (CO / 4);  // row = tap * 8 + ci
       const int tap = row / kKCF, ci = row % kKCF;
       reinterpret_cast<float4*>(ws)[u] = reinterpret_cast<const float4*>(
-          w + ((size_t)tap * cin + c0 + ci) * co_rows + tile * CO)[q];
+          w + ((size_t)tap * cin_pad + c0 + ci) * co_rows + tile * CO)[q];
     }
     __syncthreads();
 #pragma unroll
@@ -384,10 +460,19 @@ __device__ __forceinline__ void conv3x3_f32_body(
   const int oh = h0 + ph, ow = w0 + pw;
   const int co0 = tile * CO + part * kCH;
   if (oh < h && ow < wd) {
-    T* out = y + (((size_t)img * h + oh) * wd + ow) * co_total + co0;
+    OUT* out = y + (((size_t)img * h + oh) * wd + ow) * co_total + co0;
 #pragma unroll
-    for (int k = 0; k < kCH; k += 4)
-      if (co0 + k < co_total) store4(out + k, acc + k);
+    for (int k = 0; k < kCH; k += 4) {
+      // Quads where co_total is a multiple of 4 (16-byte aligned; always
+      // for B), else one channel at a time.
+      if (!TAIL || co_total % 4 == 0) {
+        if (co0 + k < co_total) store4(out + k, acc + k);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (co0 + k + i < co_total) out[k + i] = acc[k + i];
+      }
+    }
   }
 }
 
@@ -396,7 +481,8 @@ __global__ void __launch_bounds__(kThreads)
 conv3x3_f32_kernel(const T* __restrict__ x, const float* __restrict__ w,
                    T* __restrict__ y, int h, int wd, int cin, int co_total,
                    int co_tiles) {
-  conv3x3_f32_body<T, CO>(x, w, y, h, wd, cin, co_total, co_tiles);
+  conv3x3_f32_body<T, T, CO, false>(x, w, y, h, wd, cin, cin, co_total,
+                                    co_tiles);
 }
 
 template <typename T, int CO>
@@ -404,7 +490,17 @@ __global__ void __launch_bounds__(kThreads)
 conv3x3_dgrad_f32_kernel(const T* __restrict__ x, const float* __restrict__ w,
                          T* __restrict__ y, int h, int wd, int cin,
                          int co_total, int co_tiles) {
-  conv3x3_f32_body<T, CO>(x, w, y, h, wd, cin, co_total, co_tiles);
+  conv3x3_f32_body<T, T, CO, false>(x, w, y, h, wd, cin, cin, co_total,
+                                    co_tiles);
+}
+
+template <typename T, int CO>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_p1_f32_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                      float* __restrict__ y, int h, int wd, int cin,
+                      int cin_pad, int co_total, int co_tiles) {
+  conv3x3_f32_body<T, float, CO, true>(x, w, y, h, wd, cin, cin_pad,
+                                       co_total, co_tiles);
 }
 
 // One kernel instance's dynamic shared memory limit, raised once.
@@ -417,26 +513,43 @@ cudaError_t allow_smem(K kernel, int bytes, bool& configured) {
   return err;
 }
 
+// The three uses of the body: B's forward, B-dx, kernel E.
+enum Use { kForward = 0, kDgrad = 1, kP1 = 2 };
+
 template <typename T, int CO>
 int launch(const void* x, const void* w, void* y, int n, int h, int wd,
            int cin, int cin_pad, int co_total, int co_tiles, int compute_bf16,
-           int dgrad, cudaStream_t stream) {
+           int use, cudaStream_t stream) {
   if (compute_bf16) {
     constexpr int kBytes = 2 * (kHaloPix + 9 * CO) * kKC * 2;
-    static bool fwd_configured = false, dgrad_configured = false;
-    auto kernel = dgrad ? conv3x3_dgrad_bf16_kernel<T, CO>
-                        : conv3x3_bf16_kernel<T, CO>;
-    const cudaError_t err = allow_smem(
-        kernel, kBytes, dgrad ? dgrad_configured : fwd_configured);
-    if (err != cudaSuccess) return (int)err;
+    static bool configured[3] = {false, false, false};
     const dim3 grid((wd + kMW - 1) / kMW, (h + kMH - 1) / kMH, n * co_tiles);
+    if (use == kP1) {
+      const cudaError_t err = allow_smem(conv3x3_p1_bf16_kernel<T, CO>,
+                                         kBytes, configured[kP1]);
+      if (err != cudaSuccess) return (int)err;
+      conv3x3_p1_bf16_kernel<T, CO><<<grid, kThreads, kBytes, stream>>>(
+          static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(w),
+          static_cast<float*>(y), h, wd, cin, cin_pad, co_total, co_tiles);
+      return (int)cudaGetLastError();
+    }
+    auto kernel = use == kDgrad ? conv3x3_dgrad_bf16_kernel<T, CO>
+                                : conv3x3_bf16_kernel<T, CO>;
+    const cudaError_t err = allow_smem(kernel, kBytes, configured[use]);
+    if (err != cudaSuccess) return (int)err;
     kernel<<<grid, kThreads, kBytes, stream>>>(
         static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(w),
         static_cast<T*>(y), h, wd, cin, cin_pad, co_total, co_tiles);
   } else {
-    auto kernel = dgrad ? conv3x3_dgrad_f32_kernel<T, CO>
-                        : conv3x3_f32_kernel<T, CO>;
     const dim3 grid((wd + kTW - 1) / kTW, (h + kTH - 1) / kTH, n * co_tiles);
+    if (use == kP1) {
+      conv3x3_p1_f32_kernel<T, CO><<<grid, kThreads, 0, stream>>>(
+          static_cast<const T*>(x), static_cast<const float*>(w),
+          static_cast<float*>(y), h, wd, cin, cin_pad, co_total, co_tiles);
+      return (int)cudaGetLastError();
+    }
+    auto kernel = use == kDgrad ? conv3x3_dgrad_f32_kernel<T, CO>
+                                : conv3x3_f32_kernel<T, CO>;
     kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const float*>(w),
         static_cast<T*>(y), h, wd, cin, co_total, co_tiles);
@@ -447,31 +560,34 @@ int launch(const void* x, const void* w, void* y, int n, int h, int wd,
 template <typename T>
 int dispatch_co(const void* x, const void* w, void* y, int n, int h, int wd,
                 int cin, int cin_pad, int co_total, int co_tile, int co_tiles,
-                int compute_bf16, int dgrad, cudaStream_t stream) {
+                int compute_bf16, int use, cudaStream_t stream) {
   switch (co_tile) {
     case 16: return launch<T, 16>(x, w, y, n, h, wd, cin, cin_pad, co_total,
-                                  co_tiles, compute_bf16, dgrad, stream);
+                                  co_tiles, compute_bf16, use, stream);
     case 32: return launch<T, 32>(x, w, y, n, h, wd, cin, cin_pad, co_total,
-                                  co_tiles, compute_bf16, dgrad, stream);
+                                  co_tiles, compute_bf16, use, stream);
     case 64: return launch<T, 64>(x, w, y, n, h, wd, cin, cin_pad, co_total,
-                                  co_tiles, compute_bf16, dgrad, stream);
+                                  co_tiles, compute_bf16, use, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int run(const void* x, const void* w, void* y, int n, int h, int wd, int cin,
         int cin_pad, int co_total, int co_tile, int in_dtype, int compute_bf16,
-        int dgrad, void* stream) {
-  if (co_total <= 0 || co_total % 8 || co_total > co_tile * 64)
+        int use, void* stream) {
+  if (co_total <= 0 || (use != kP1 && co_total % 8) ||
+      co_total > co_tile * 64 || cin <= 0 || n <= 0 || h <= 0 || wd <= 0)
     return (int)cudaErrorInvalidValue;
   const int co_tiles = (co_total + co_tile - 1) / co_tile;
+  if ((long long)n * co_tiles > 65535 || (h + kTH - 1) / kTH > 65535)
+    return (int)cudaErrorInvalidValue;  // grid.z and grid.y limits
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == 1)
     return dispatch_co<__nv_bfloat16>(x, w, y, n, h, wd, cin, cin_pad,
                                       co_total, co_tile, co_tiles,
-                                      compute_bf16, dgrad, s);
+                                      compute_bf16, use, s);
   return dispatch_co<float>(x, w, y, n, h, wd, cin, cin_pad, co_total,
-                            co_tile, co_tiles, compute_bf16, dgrad, s);
+                            co_tile, co_tiles, compute_bf16, use, s);
 }
 
 }  // namespace
@@ -484,7 +600,7 @@ extern "C" int conv3x3_forward(const void* x, const void* w, void* y, int n,
                                int h, int wd, int cin, int cin_pad, int co,
                                int in_dtype, int compute_bf16, void* stream) {
   return run(x, w, y, n, h, wd, cin, cin_pad, co, co, in_dtype, compute_bf16,
-             0, stream);
+             kForward, stream);
 }
 
 // The input gradient: g (N, H, W, Co_fwd) in_dtype -> dx (N, H, W, co_total)
@@ -497,7 +613,20 @@ extern "C" int conv3x3_dgrad(const void* g, const void* w, void* dx, int n,
                              int co_tile, int in_dtype, int compute_bf16,
                              void* stream) {
   return run(g, w, dx, n, h, wd, cin, cin_pad, co_total, co_tile, in_dtype,
-             compute_bf16, 1, stream);
+             compute_bf16, kDgrad, stream);
+}
+
+// Kernel E: x (N, H, W, Cin) in_dtype, any Cin >= 1 -> y (N, H, W, Co)
+// float32, any Co >= 1. w: [9][co_rows][cin_pad] bfloat16 (cin_pad a
+// multiple of 16) when compute_bf16 is 1, else [9][cin_pad][co_rows] float32
+// (cin_pad a multiple of 8); co_rows = Co padded to a multiple of co_tile
+// (16, 32 or 64), zero-filled. Returns cudaGetLastError().
+extern "C" int conv3x3_p1_forward(const void* x, const void* w, void* y,
+                                  int n, int h, int wd, int cin, int cin_pad,
+                                  int co, int co_tile, int in_dtype,
+                                  int compute_bf16, void* stream) {
+  return run(x, w, y, n, h, wd, cin, cin_pad, co, co_tile, in_dtype,
+             compute_bf16, kP1, stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

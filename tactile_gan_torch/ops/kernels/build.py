@@ -6,6 +6,12 @@ shared library for Hopper (``sm_90a``). The file name carries a hash of the
 source and the flags, so an edited source is rebuilt and a stale library is
 never loaded. Nothing here runs at import time: the CPU tests import every
 module on a host without nvcc.
+
+    python -m tactile_gan_torch.ops.kernels.build SRC.cu [SRC.cu ...]
+
+compiles each source with these flags into a temporary directory and prints
+ptxas's registers and spills for each kernel in it (to compare two versions
+of a source).
 """
 
 from __future__ import annotations
@@ -14,8 +20,11 @@ import concurrent.futures as cf
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
@@ -72,6 +81,44 @@ def build_all(names: Iterable[str]) -> None:
             fut.result()
 
 
+def ptxas_report(log: str) -> Dict[str, str]:
+    """Kernel -> "N registers, S B spill stores, L B spill loads" from
+    ptxas's -v report; names demangled where c++filt is on PATH."""
+    regs, spills, cur = {}, {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
+                      line)
+        if m:
+            cur = m.group(1)
+        elif cur and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            spills[cur] = f"{st} B spill stores, {ld} B spill loads"
+        elif cur and "registers" in line:
+            regs[cur] = re.search(r"Used (\d+) registers", line).group(1)
+    names = list(regs)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        plain = names
+    return {re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", p):
+            f"{regs[n]} registers, {spills.get(n, 'spills not reported')}"
+            for n, p in zip(names, plain)}
+
+
+def compile_report(src: str) -> Dict[str, str]:
+    """ptxas's report for one source compiled with NVCC_FLAGS into a
+    temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(tmp, "k.so"), src],
+            capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    return ptxas_report(proc.stderr)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built on first use."""
     with _lock:
@@ -80,3 +127,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
         return lib
+
+
+if __name__ == "__main__":
+    paths = sys.argv[1:]
+    with cf.ThreadPoolExecutor(max_workers=max(1, len(paths))) as pool:
+        reports = list(pool.map(compile_report, paths))
+    for path, report in zip(paths, reports):
+        for kernel, line in sorted(report.items()):
+            print(f"{path}: {kernel}: {line}")

@@ -25,6 +25,16 @@ the concatenated node input, up to 384 channels at nf=64); Co is 16, 32 or
 by one launch. On a CPU tensor the Function runs the plain versions; on a
 CUDA tensor it launches the kernels or raises. It is first-order only: a
 backward run while building a graph for a second derivative raises.
+
+Kernel E: ``conv3x3_p1`` and ``conv3x3_p1_h`` replace the Pallas functions
+of the same names (``ops/pallas/conv3x3.py``, W-pairs and H-pairs), whose
+only caller is the conv probe (``cli/probe_conv.py``). Both compute the
+function that B computes: the pairs were a way to fill the TPU's 128 MXU
+lanes, so both names launch one kernel, B's body instantiated with a tail
+flag that takes any Cin and Co >= 1 and any H, W >= 1 (the Pallas functions
+need an even W or H) and writes float32. They take NHWC x (float32 or
+bfloat16) and an HWIO weight, as the Pallas functions do, and are forward
+only: an input that requires grad under grad mode raises.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COMPUTE = (torch.bfloat16, torch.float32)
 _CO = (16, 32, 64)
 _KC = 16  # Cin slice of the bf16 kernel (csrc kKC)
+_KCF = 8  # Cin slice of the float32 kernel (csrc kKCF)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -56,6 +67,9 @@ def _load() -> ctypes.CDLL:
         lib.conv3x3_forward.restype = i
         lib.conv3x3_dgrad.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.conv3x3_dgrad.restype = i
+        lib.conv3x3_p1_forward.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
+                                           i, p]
+        lib.conv3x3_p1_forward.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -95,39 +109,52 @@ def co_tile(co: int) -> int:
 def relayout_weight(weight: torch.Tensor, compute_dtype: torch.dtype,
                     tile: int = 0) -> torch.Tensor:
     """OIHW -> the layout the kernel reads: [9][Co_pad][Cin_pad] bfloat16
-    (Cin zero-padded to a multiple of 16) for bf16 compute, [9][Cin][Co_pad]
-    float32 for float32 compute; Co is zero-padded to a multiple of
-    ``tile`` (0: no padding)."""
+    (Cin zero-padded to a multiple of 16) for bf16 compute,
+    [9][Cin_pad][Co_pad] float32 (Cin zero-padded to a multiple of 8) for
+    float32 compute; Co is zero-padded to a multiple of ``tile`` (0: no
+    padding)."""
     co, cin = weight.shape[:2]
     co_pad = (-co) % tile if tile else 0
     if compute_dtype == torch.bfloat16:
         w = weight.permute(2, 3, 0, 1).reshape(9, co, cin)
         w = F.pad(w, (0, (-cin) % _KC, 0, co_pad))
     else:
-        w = F.pad(weight.permute(2, 3, 1, 0).reshape(9, cin, co), (0, co_pad))
+        w = weight.permute(2, 3, 1, 0).reshape(9, cin, co)
+        w = F.pad(w, (0, co_pad, 0, (-cin) % _KCF))
     return w.to(compute_dtype).contiguous()
 
+
+def hwio_to_oihw(k: torch.Tensor) -> torch.Tensor:
+    """(3, 3, Cin, Co) -> (Co, Cin, 3, 3), a view."""
+    return k.permute(3, 2, 0, 1)
+
+
+# How each use re-lays its weight: B's forward (OIHW), B-dx (the
+# rotated-transposed OIHW weight, Co = the forward's Cin walked in tiles) and
+# kernel E (HWIO, any Co, walked in tiles).
+_RELAYOUTS = {
+    "forward": lambda w, cd: relayout_weight(w, cd),
+    "dgrad": lambda w, cd: relayout_weight(rot_t(w), cd, co_tile(w.shape[1])),
+    "p1": lambda k, cd: relayout_weight(hwio_to_oihw(k), cd,
+                                        co_tile(k.shape[3])),
+}
 
 # The re-laid weights, kept while their source tensor lives, is not
 # written in place (its version counter moves on every in-place update) and
 # keeps its storage (``.data`` reassigned, as ``Module.to`` does): one entry
-# per (compute dtype, use) of each weight, the forward's and the dx's.
+# per (compute dtype, use) of each weight.
 _relaid = WeakIdKeyDictionary()
 
 
 def _kernel_weight(weight: torch.Tensor, compute_dtype: torch.dtype,
-                   dgrad: bool = False) -> torch.Tensor:
+                   use: str = "forward") -> torch.Tensor:
     key = (weight._version, weight.data_ptr())
     entries = _relaid.setdefault(weight, {})
-    hit = entries.get((compute_dtype, dgrad))
+    hit = entries.get((compute_dtype, use))
     if hit is not None and hit[0] == key:
         return hit[1]
-    w = weight.detach()
-    if dgrad:
-        wk = relayout_weight(rot_t(w), compute_dtype, co_tile(w.shape[1]))
-    else:
-        wk = relayout_weight(w, compute_dtype)
-    entries[(compute_dtype, dgrad)] = (key, wk)
+    wk = _RELAYOUTS[use](weight.detach(), compute_dtype)
+    entries[(compute_dtype, use)] = (key, wk)
     return wk
 
 
@@ -184,7 +211,7 @@ def dgrad_kernel(g: torch.Tensor, weight: torch.Tensor,
                          f"{cin}, strides {g.stride()}")
     n, h, w, _ = g.shape
     bf16 = compute_dtype == torch.bfloat16
-    wk = _kernel_weight(weight, compute_dtype, dgrad=True)
+    wk = _kernel_weight(weight, compute_dtype, "dgrad")
     dx = torch.empty((n, h, w, cin), dtype=g.dtype, device=g.device)
     lib = _load()
     err = lib.conv3x3_dgrad(
@@ -250,3 +277,89 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, *,
 
 
 conv3x3.launches = 0  # kernel B launches for the forward
+
+
+def conv3x3_p1_plain(x: torch.Tensor, k: torch.Tensor, *,
+                     compute_dtype: torch.dtype = torch.bfloat16
+                     ) -> torch.Tensor:
+    """The plain version of kernel E: x (N,H,W,C) float32 or bfloat16, k
+    (3,3,C,Co) HWIO -> (N,H,W,Co) float32; operands rounded to
+    ``compute_dtype``, float32 sums."""
+    return conv3x3_plain(x.float(), hwio_to_oihw(k),
+                         compute_dtype=compute_dtype)
+
+
+def _check_p1(name: str, x: torch.Tensor, k: torch.Tensor,
+              compute_dtype: torch.dtype) -> None:
+    if compute_dtype not in _COMPUTE:
+        raise ValueError(f"{name}: unsupported compute dtype {compute_dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 4 or x.dtype not in _DTYPES or min(x.shape) < 1:
+        raise ValueError(f"{name} takes a non-empty NHWC float32 or bfloat16 "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    if (k.dim() != 4 or k.shape[:3] != (3, 3, x.shape[3]) or k.shape[3] < 1
+            or not k.is_floating_point() or k.device != x.device):
+        raise ValueError(f"{name} needs a (3, 3, {x.shape[3]}, Co) HWIO "
+                         f"weight on {x.device}, got {k.dtype} "
+                         f"{tuple(k.shape)} on {k.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or k.requires_grad):
+        raise RuntimeError(
+            f"{name} is forward only, like the Pallas function it ports: its "
+            "output would have no gradient. Call it under torch.no_grad() or "
+            "on tensors that do not require grad")
+
+
+def _p1_kernel(x: torch.Tensor, k: torch.Tensor, compute_dtype: torch.dtype,
+               counter) -> torch.Tensor:
+    """Kernel E on a CUDA tensor; ``counter.launches`` counts the launch."""
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("kernel E needs a contiguous, 16-byte aligned NHWC "
+                         f"tensor; got shape {tuple(x.shape)}, strides "
+                         f"{x.stride()}")
+    n, h, w, cin = x.shape
+    co = k.shape[3]
+    bf16 = compute_dtype == torch.bfloat16
+    wk = _kernel_weight(k, compute_dtype, "p1")
+    y = torch.empty((n, h, w, co), dtype=torch.float32, device=x.device)
+    lib = _load()
+    err = lib.conv3x3_p1_forward(
+        x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin,
+        wk.shape[-1] if bf16 else wk.shape[1], co, co_tile(co),
+        _DTYPES[x.dtype], int(bf16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("conv3x3_p1 kernel launch failed: "
+                           + lib.cuda_error_string(err).decode())
+    counter.launches += 1
+    return y
+
+
+def _p1(name: str, counter, x: torch.Tensor, k: torch.Tensor,
+        compute_dtype: torch.dtype) -> torch.Tensor:
+    _check_p1(name, x, k, compute_dtype)
+    if x.device.type == "cpu":
+        return conv3x3_p1_plain(x, k, compute_dtype=compute_dtype)
+    return _p1_kernel(x, k, compute_dtype, counter)
+
+
+def conv3x3_p1(x: torch.Tensor, k: torch.Tensor, *,
+               compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Port of the Pallas ``conv3x3_p1`` (W-pairs): 3x3/s1/p1 conv, x
+    (N,H,W,C) float32 or bfloat16, k (3,3,C,Co) HWIO -> (N,H,W,Co) float32.
+    Kernel E on a CUDA tensor, the plain version on a CPU tensor; forward
+    only."""
+    return _p1("conv3x3_p1", conv3x3_p1, x, k, compute_dtype)
+
+
+conv3x3_p1.launches = 0  # kernel E launches through conv3x3_p1
+
+
+def conv3x3_p1_h(x: torch.Tensor, k: torch.Tensor, *,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Port of the Pallas ``conv3x3_p1_h`` (H-pairs): the same function as
+    ``conv3x3_p1``, through the same kernel E, counted on its own."""
+    return _p1("conv3x3_p1_h", conv3x3_p1_h, x, k, compute_dtype)
+
+
+conv3x3_p1_h.launches = 0  # kernel E launches through conv3x3_p1_h

@@ -46,6 +46,13 @@ _OWN = [(fam, re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(keys) + r")\b"))
 LIBRARY_CONV = ("conv", "xmma", "cudnn", "cutlass", "gemm", "sm90_", "sm80_")
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def kernel_family(name: str) -> str:
     for family, pattern in _OWN:
         if pattern.search(name):
@@ -212,9 +219,7 @@ def main(argv=None) -> int:
             results.append(res)
             print(json.dumps(res), flush=True)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = card_line()
     print(card)
     with open(out, "w") as f:
         json.dump({"card": card, "runs": results}, f, indent=1)

@@ -226,17 +226,17 @@ def test_conv3x3_function_gradients_are_the_plain_versions(cin, co):
 def test_dgrad_weight_relayout_is_cached_beside_the_forward_one():
     w = torch.nn.Parameter(torch.randn(64, 24, 3, 3))
     fwd = kb._kernel_weight(w, torch.bfloat16)
-    dx = kb._kernel_weight(w, torch.bfloat16, dgrad=True)
+    dx = kb._kernel_weight(w, torch.bfloat16, "dgrad")
     assert kb._kernel_weight(w, torch.bfloat16) is fwd
-    assert kb._kernel_weight(w, torch.bfloat16, dgrad=True) is dx
+    assert kb._kernel_weight(w, torch.bfloat16, "dgrad") is dx
     # [9][Co_dx = 24 padded to a 32-wide tile][Cin_dx = 64] for bf16.
     assert dx.shape == (9, 32, 64) and not dx[:, 24:].any()
     torch.testing.assert_close(
         dx[:, :24], kb.relayout_weight(kb.rot_t(w.detach()), torch.bfloat16))
     with torch.no_grad():
         w.add_(1.0)  # an optimizer step rebuilds both
-    assert kb._kernel_weight(w, torch.bfloat16, dgrad=True) is not dx
-    f32 = kb._kernel_weight(w, torch.float32, dgrad=True)
+    assert kb._kernel_weight(w, torch.bfloat16, "dgrad") is not dx
+    f32 = kb._kernel_weight(w, torch.float32, "dgrad")
     assert f32.shape == (9, 64, 32) and f32.dtype == torch.float32
 
 
