@@ -11,17 +11,21 @@ Phases, each raising on failure (each prints its seconds):
      each kernel;
   1. hold each kernel against its plain PyTorch version on the card at
      shapes off the main path (partial tiles, channel counts that are not a
-     multiple of 64, several output-channel tiles), in float32 and bfloat16:
-     A and B forward, C (instance-norm backward), B-dx and D (the conv's
-     input and weight gradients); and kernel E (conv3x3_p1, conv3x3_p1_h)
-     off B's domain: Cin and Co from 1 to 96, odd H and W, partial tiles,
-     batches of 1 and 3, float32 and bf16 inputs, both compute dtypes, through
-     both names;
+     multiple of 64 or of 8, several output-channel tiles), in float32 and
+     bfloat16: A and B forward (B at Co 64 with bf16 operands is the wgmma
+     kernel of csrc/conv3x3_fwd_sm90.cu, also at W not a multiple of 64, H
+     not a multiple of 4, Cin 8 and 40 and batch 3; B at Co off 16/32/64 or
+     Cin off multiples of 8 is the tail instantiation), C (instance-norm
+     backward), B-dx and D (the conv's input and weight gradients); and
+     kernel E (conv3x3_p1, conv3x3_p1_h) at Cin and Co from 1 to 96, odd H
+     and W, partial tiles, batches of 1 and 3, float32 and bf16 inputs, both
+     compute dtypes, through both names;
   2. the same at every shape the serving forward and the training step give
      each kernel, with times: the kernel, its plain version and one library
      call computing the same function (a yardstick only: the port never
      calls it), beside the least time the card could take (bytes /
-     3.35 TB/s or flops / peak);
+     3.35 TB/s or flops / peak); two faults planted on the wgmma kernel's
+     output must fail the per-shape check;
   3. train: synthetic chart pairs are written as data/train under a
      temporary work root and ``tactile_gan_torch.cli.train.main`` runs at
      its defaults (UNet++ nf=64, batch 4, 256x256, ls loss with label
@@ -39,14 +43,21 @@ Phases, each raising on failure (each prints its seconds):
      where matplotlib is not installed; the runner says so), with the
      launch counts of both forward kernels; the card's output for one image
      must match the same weights run on the CPU through the plain path;
-  5. probe_conv: the conv probe entry point
+  5. other widths: for nf 8, 12, 24 and 128, cli.train runs one epoch of
+     two steps at 64x64, batch 2, with --debug_nans, cli.test serves the
+     trained folder, and the card's forward of the trained generator is held
+     to the CPU's. At nf <= 64 row 0 runs kernels B, B-dx and D (the tail
+     instantiation, Co 8, 12, 24) and the launch counts must be those of
+     the default width; at nf 128 (Co > 64, the library conv, as the JAX
+     package's XLA conv) no B, B-dx or D launch may happen;
+  6. probe_conv: the conv probe entry point
      (``tactile_gan_torch.cli.probe_conv``, the port of
      scripts/probe_pallas_conv.py) at its defaults, B4, 256x256, three
      (Cin, Co) pairs, on cuda. The launch counters must equal the calls the
      probe made through conv3x3_p1, conv3x3_p1_h and conv3x3 (kernels E and
      B); then E, through both names, against its plain version at the
      probe's inputs, with its ms, the plain and library ms and the bound;
-  6. one training step on the card against the same step on the CPU (plain
+  7. one training step on the card against the same step on the CPU (plain
      versions), from the same weights and injected draws, at nf=16, 64x64,
      batch 2, float32 compute with TF32 off, learning rate 0: the losses
      and every gradient before the Adam update must agree within limits
@@ -197,9 +208,20 @@ SUM_SHARE = 1e-4
 
 # Shapes off the serving path, for the kernels' edges: partial tiles, C and
 # Cin not a multiple of 16, Co below 64, every activation, no affine.
+# C 12 and 20: off multiples of 8, padded by the wrappers of A and C.
 EDGE_A = [((3, 7, 5, 24), "leaky_relu", True), ((2, 9, 13, 136), None, False),
-          ((1, 1, 1, 8), "relu", True)]
-EDGE_B = [((2, 37, 53, 24), 32), ((1, 9, 17, 8), 16), ((1, 40, 70, 40), 64)]
+          ((1, 1, 1, 8), "relu", True), ((2, 9, 13, 12), "relu", True),
+          ((3, 5, 7, 20), "leaky_relu", False)]
+# The last four take the tail instantiation for B and B-dx (Co off 16/32/64
+# or Cin off multiples of 8: UNet++ row 0 at nf 8, 12, 24) and D's padding.
+EDGE_B = [((2, 37, 53, 24), 32), ((1, 9, 17, 8), 16), ((1, 40, 70, 40), 64),
+          ((2, 37, 53, 12), 12), ((1, 9, 17, 36), 24), ((2, 19, 45, 64), 8),
+          ((1, 7, 9, 3), 40)]
+# B's forward at Co 64 with bf16 operands (the wgmma kernel): W not a
+# multiple of its 64-pixel tile, H not a multiple of its 4 rows, Cin 8 and 40
+# (one slice half empty), batch 3, a single pixel.
+EDGE_B_SM90 = [(3, 7, 65, 8), (1, 9, 130, 40), (2, 5, 17, 64),
+               (3, 13, 66, 16), (1, 1, 1, 8)]
 # Kernel E: every (Cin, Co) of these, plus one wider pair (two output-channel
 # tiles), at (N, H, W) taken in turn from E_NHW (odd sizes, partial 8x32 and
 # 8x16 tiles, a single pixel, batches of 1 and 3).
@@ -251,8 +273,22 @@ def phase_edges(torch, ka, kb, kd, seed):
             torch.cuda.synchronize()
             err = check_close(f"B edge {shape} co {co} {dn}/{cn}", y,
                               kb.conv3x3_plain(x, wt, compute_dtype=cd), dn)
-            print(f"B edge {list(shape)} co={co} {dn}/{cn}: max|diff| "
+            print(f"B edge {list(shape)} co={co} {dn}/{cn} ("
+                  f"{kb.forward_entry(shape[-1], co, cd)}): max|diff| "
                   f"{err:.3e}", flush=True)
+    for shape in EDGE_B_SM90:
+        for in_dt in (torch.float32, torch.bfloat16):
+            dn = str(in_dt).split(".")[1]
+            x = torch.randn(shape, device="cuda", generator=gen).to(in_dt)
+            wt = 0.1 * torch.randn((64, shape[-1], 3, 3), device="cuda",
+                                   generator=gen)
+            y = kb.conv3x3(x, wt)
+            torch.cuda.synchronize()
+            err = check_close(f"B sm90 edge {shape} {dn}", y,
+                              kb.conv3x3_plain(x, wt), dn)
+            print(f"B edge {list(shape)} co=64 {dn}/bfloat16 ("
+                  f"{kb.forward_entry(shape[-1], 64, torch.bfloat16)}): "
+                  f"max|diff| {err:.3e}", flush=True)
     # Kernel C at A's edge shapes: its stats come from kernel A.
     for shape, act, affine in EDGE_A:
         c = shape[-1]
@@ -362,10 +398,10 @@ def phase_kernels(torch, ka, kb, seed, record):
                       f"bound {row['bound_ms']:.4f}", flush=True)
         # Kernel B: (input dtype, compute dtype); the serving path runs the
         # first (float32 activations, bf16 operands).
-        combos = [(torch.float32, torch.bfloat16)]
+        combos = [(torch.float32, torch.bfloat16),
+                  (torch.bfloat16, torch.bfloat16)]
         if batch == 1:
-            combos += [(torch.bfloat16, torch.bfloat16),
-                       (torch.float32, torch.float32)]
+            combos += [(torch.float32, torch.float32)]
         for cin, per_fwd in B_CINS:
             for in_dt, cd in combos:
                 dn, cn = str(in_dt).split(".")[1], str(cd).split(".")[1]
@@ -396,8 +432,14 @@ def phase_kernels(torch, ka, kb, seed, record):
                 row["library_ms"], _ = cuda_ms(
                     lambda: torch.nn.functional.conv2d(xl, wl, padding=1))
                 row["tflops"] = flops / row["ms"] / 1e9
+                row["entry"] = kb.forward_entry(cin, 64, cd)
+                if (row["entry"] == kb.SM90_ENTRY and dn == "float32"
+                        and "sm90_faults" not in record):
+                    record["sm90_faults"] = plant_sm90_faults(
+                        torch, kb, x, wt, ref)
                 b_rows.append(row)
-                print(f"B {row['shape']} {dn}/{cn}: max|diff| {err:.3e} "
+                print(f"B {row['shape']} {dn}/{cn} ({row['entry']}): "
+                      f"max|diff| {err:.3e} "
                       f"(atol {TOL[dn][0]}, rtol {TOL[dn][1]:.4g}) "
                       f"ms {row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s, call "
                       f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} library "
@@ -406,6 +448,31 @@ def phase_kernels(torch, ka, kb, seed, record):
     record["kernel_a"] = a_rows
     record["kernel_b"] = b_rows
     return a_rows, b_rows
+
+
+def plant_sm90_faults(torch, kb, x, wt, ref):
+    """Two faults planted on the wgmma kernel at one serving shape (float32
+    input and output): its output x 1.01, and the output of an input whose
+    second 16-channel slice is zero, as a body that skipped that slice would
+    give. Each must fail the per-shape check against ``ref``, the plain
+    version of the unchanged input; returns their max |diff|."""
+    xs = x.clone()
+    xs[..., 16:32] = 0
+    planted = {"output x 1.01": kb.forward_kernel(x, wt, torch.bfloat16) * 1.01,
+               "Cin slice 16-31 dropped": kb.forward_kernel(xs, wt,
+                                                            torch.bfloat16)}
+    out = {}
+    for name, y in planted.items():
+        try:
+            check_close(f"planted {name}", y, ref, "float32")
+        except AssertionError:
+            out[name] = (y - ref).abs().max().item()
+            print(f"planted fault on the wgmma kernel, {name}: caught, "
+                  f"max|diff| {out[name]:.3e}", flush=True)
+            continue
+        raise AssertionError(f"planted fault {name} on the wgmma kernel "
+                             "passed the per-shape check")
+    return out
 
 
 def phase_train_kernels(torch, ka, kb, kd, seed, record):
@@ -461,6 +528,21 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record):
                         generator=gen)
         wt = 0.05 * torch.randn((64, cin, 3, 3), device=dev, generator=gen)
         cd = torch.bfloat16
+        # B's forward as the training step runs it: through the autograd
+        # Function with grad enabled, float32 and bf16 activations.
+        for xin in (x, x.to(cd)):
+            dn = str(xin.dtype).split(".")[1]
+            xg = xin.detach().requires_grad_()
+            y = kb.conv3x3(xg, wt.detach().requires_grad_(), compute_dtype=cd)
+            torch.cuda.synchronize()
+            if y.grad_fn is None:
+                raise AssertionError("B forward under grad gave no grad_fn")
+            err = check_close(f"B train cin {cin} {dn}", y.detach(),
+                              kb.conv3x3_plain(xin, wt, compute_dtype=cd), dn)
+            print(f"B train fwd cin {cin} {dn} "
+                  f"({kb.forward_entry(cin, 64, cd)}): max|diff| {err:.3e}",
+                  flush=True)
+            del y, xg
         dx = kb.dgrad_kernel(g, wt, cd)
         dk = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
         torch.cuda.synchronize()
@@ -617,6 +699,88 @@ def phase_train(torch, ka, kb, kd, args, record):
         print(f"served the trained folder: {metrics}; launches {serve_counts}",
               flush=True)
     record["train"] = out
+    return out
+
+
+# UNet++ widths beside the default: row 0 on B's tail instantiation (8, 12,
+# 24; 12 also pads A, C and D) and on the library conv (128).
+NF_OTHER = (8, 12, 24, 128)
+NF_SIZE, NF_BATCH = 64, 2
+
+
+def phase_nf(torch, ka, kb, kd, args, record):
+    """cli.train and cli.test at nf 8, 12, 24 and 128 on the card: one epoch
+    of two steps at 64x64, batch 2, with --debug_nans; the trained
+    generator's forward on the card against the CPU's. At nf <= 64 the
+    launch counts are the default width's per step and per forward; at nf
+    128 the row-0 convs take the library conv: no B, B-dx or D launch."""
+    from tactile_gan_torch.cli import test as test_cli
+    from tactile_gan_torch.cli import train as train_cli
+    from tactile_gan_torch.core.config import TrainConfig
+    from tactile_gan_torch.eval import runner
+
+    out = []
+    for nf in NF_OTHER:
+        with tempfile.TemporaryDirectory() as root:
+            write_pairs(root, "train", chart_pairs(2 * NF_BATCH, NF_SIZE,
+                                                   args.seed + 20 + nf))
+            write_pairs(root, "test", chart_pairs(NF_BATCH, NF_SIZE,
+                                                  args.seed + 21 + nf))
+            reset_counts(ka, kb, kd)
+            trainer = train_cli.main([
+                "--data", os.path.join(root, "data"), "--nf", str(nf),
+                "--image_size", str(NF_SIZE), "--batch_size", str(NF_BATCH),
+                "--total_epochs", "1", "--epoch_constant", "1",
+                "--folder_save", f"nf{nf}", "--seed", str(args.seed),
+                "--debug_nans"])
+            metrics = test_cli.main(["--folder", f"nf{nf}", "--work_root",
+                                     root, "--eval_batch", str(NF_BATCH)])
+            torch.cuda.synchronize()
+            counts = launch_counts(ka, kb, kd)
+            losses = {k: getattr(trainer, f"{k}_loss") for k in (
+                "gen", "disc", "l1", "gp", "per")}
+            cfg = TrainConfig.from_params_file(os.path.join(
+                trainer.cfg.models_dir(), "params.txt"))
+            ckpt = os.path.join(trainer.cfg.models_dir(), "final_model.pth")
+            x = torch.from_numpy(chart_pairs(1, NF_SIZE, args.seed)[0][0][None])
+            f_gpu, _ = runner.load_model(ckpt, cfg, device="cuda")
+            f_cpu, _ = runner.load_model(ckpt, cfg, device="cpu")
+            got = f_gpu(runner.normalize_u8(x.cuda())).cpu()
+            want = f_cpu(runner.normalize_u8(x))
+            d = (got - want).abs()
+            max_tol, mean_tol = SERVE_TOL[cfg.compute_dtype]
+            res = {"nf": nf, "steps": trainer.state.step, "losses": losses,
+                   "launches": counts, "metrics": metrics,
+                   "max_abs": d.max().item(), "mean_abs": d.mean().item(),
+                   "tol": [max_tol, mean_tol],
+                   "kernel_convs": [list(getattr(trainer.gen, f"conv0_{c}")
+                                         .kernel_convs) for c in range(5)]}
+            out.append(res)
+            print(f"nf {nf}: {res['steps']} steps, losses {losses}; served "
+                  f"{metrics}; card vs CPU max|diff| {res['max_abs']:.3e} "
+                  f"(tol {max_tol}), mean {res['mean_abs']:.3e} (tol "
+                  f"{mean_tol}); launches {counts}", flush=True)
+            steps = trainer.state.step
+            forwards = 1  # NF_BATCH test pairs at eval_batch NF_BATCH
+            per_step = dict(PER_STEP)
+            if nf > kb.MAX_CO:
+                for k in ("conv3x3", "conv3x3_dgrad", "conv3x3_wgrad"):
+                    per_step[k] = 0
+            want = {k: v * steps for k, v in per_step.items()}
+            want["instance_norm_act"] += A_PER_FORWARD * forwards
+            want["conv3x3"] += per_step["conv3x3"] * forwards
+            if counts != want or steps != 2:
+                raise AssertionError(f"nf {nf}: launches {counts}, expected "
+                                     f"{want} ({steps} steps, {forwards} "
+                                     "forward)")
+            if not all(math.isfinite(v) for vs in losses.values() for v in vs):
+                raise AssertionError(f"nf {nf}: losses {losses}")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"nf {nf}: metrics {metrics}")
+            if got.shape != (1, NF_SIZE, NF_SIZE, 3) or not (
+                    res["max_abs"] <= max_tol and res["mean_abs"] <= mean_tol):
+                raise AssertionError(f"nf {nf}: card and CPU disagree: {res}")
+    record["other_widths"] = out
     return out
 
 
@@ -1013,12 +1177,15 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "seed": args.seed, "phase_s": {}}
     t0 = time.perf_counter()
-    build.build_all(["instance_norm_act", "conv3x3", "conv3x3_wgrad"])
+    build.build_all(["instance_norm_act", "conv3x3", "conv3x3_fwd_sm90",
+                     "conv3x3_wgrad"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built kernels in {record['build_s']:.1f} s", flush=True)
     record["ptxas"] = {name: build.ptxas_report(log)
                        for name, log in build.build_logs.items()}
+    record["build_seconds"] = dict(build.build_seconds)
     for name, report in record["ptxas"].items():
+        print(f"  {name}.cu: nvcc {build.build_seconds[name]:.1f} s")
         for kernel, line in sorted(report.items()):
             print(f"  {name}: {kernel}: {line}")
 
@@ -1036,6 +1203,7 @@ def main() -> int:
                                     torch, ka, kb, kd, args.seed, record)
     train = timed("train", phase_train, torch, ka, kb, kd, args, record)
     serve = timed("serve", phase_serve, torch, ka, kb, args, record)
+    timed("other_widths", phase_nf, torch, ka, kb, kd, args, record)
     probe = timed("probe_conv", phase_probe, torch, ka, kb, kd, record)
     timed("step_card_vs_cpu", phase_step_card_vs_cpu, torch, ka, kb, args,
           record)
@@ -1064,7 +1232,8 @@ def main() -> int:
                      pallas + "instance_norm.py:383",
                      launches["instance_norm_act_backward"], c_rows,
                      lambda r: r["per_step"], per, card),
-        kernel_entry("conv3x3", csrc + "conv3x3.cu", pallas + "conv3x3.py:394",
+        kernel_entry("conv3x3", csrc + "conv3x3_fwd_sm90.cu",
+                     pallas + "conv3x3.py:394",
                      launches["conv3x3"], b_step, lambda r: r["per_forward"],
                      per + ", bf16 operands", card),
         kernel_entry("conv3x3_dgrad", csrc + "conv3x3.cu",
@@ -1085,6 +1254,13 @@ def main() -> int:
             launches[name], probe["rows"][name], lambda r: 1, probe_per,
             card))
     record["kernels"] = kernels
+    # B's forward a training step beside cuDNN and its bound, this run.
+    b_sum = {k: sum(r[k] * r["per_forward"] for r in b_step)
+             for k in ("ms", "library_ms", "bound_ms")}
+    record["kernel_b_step"] = b_sum
+    print(f"B forward a training step: {b_sum['ms']:.4f} ms (cuDNN "
+          f"{b_sum['library_ms']:.4f}, bound {b_sum['bound_ms']:.4f})",
+          flush=True)
     record["main_path_launches"] = launches
     record["per_forward"] = {
         name: {f"batch{b}": {k: per_forward(rows, k, serving_rows(b))

@@ -5,7 +5,9 @@ Field names and defaults are those of ``tactile_gan_tpu/core/config.py``
 ``params.txt`` written by either package, or by the PyTorch reference,
 rehydrates here and the other way round. Unknown keys are ignored.
 
-The port adds ``device`` (cuda unless the caller asks for cpu). Flags that
+The port adds ``device`` (cuda unless the caller asks for cpu).
+``--profile_dir`` works as in the JAX package; ``--debug_nans`` checks each
+step's losses (not each operation, as ``jax_debug_nans`` does). Flags that
 only choose a TPU layout or kernel of the same function (``--use_pallas``,
 ``--lane_pack``, the mesh sizes, ...) are accepted and ignored with a
 one-line note; flags that choose another function the port does not build
@@ -28,7 +30,7 @@ _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # decomposition of the same function: accepted, ignored by the port.
 TPU_ONLY_FLAGS = ("use_pallas", "force_pallas", "mesh_data", "mesh_model",
                   "split_concat", "lane_pack", "bf16_resident", "packed_row0",
-                  "gp_fused", "disc_bf16", "profile_dir", "debug_nans")
+                  "gp_fused", "disc_bf16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,9 +238,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh_model", type=int, default=1,
                    help="TPU-only; ignored by the port")
     p.add_argument("--profile_dir", default="",
-                   help="TPU-only; ignored by the port")
+                   help="write a torch.profiler trace of the first epoch "
+                        "into this directory")
     p.add_argument("--debug_nans", default=False, action="store_true",
-                   help="TPU-only; ignored by the port")
+                   help="raise FloatingPointError after the first step "
+                        "whose losses are not finite")
     return p
 
 

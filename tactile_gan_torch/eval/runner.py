@@ -34,6 +34,7 @@ from tactile_gan_torch.eval.visualize import (
 )
 from tactile_gan_torch.models.blocks import init_weights
 from tactile_gan_torch.models.factory import create_generator
+from tactile_gan_torch.models.vgg import fallback_banner
 from tactile_gan_torch.utils.checkpoint import load_checkpoint
 from tactile_gan_torch.utils.io import mkdir
 
@@ -234,6 +235,7 @@ def evaluate_folder(folder: str, work_root: str = ".",
             print("NOTE: params.txt records vgg_random_fallback=true — this "
                   "model was trained against deterministic random VGG "
                   "features.")
+            print(fallback_banner())
 
     forward, _ = load_model(os.path.join(model_dir, "final_model.pth"), cfg,
                             device=device)

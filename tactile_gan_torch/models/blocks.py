@@ -5,8 +5,11 @@ Parameters live in ordinary ``nn.Conv2d`` / ``nn.InstanceNorm2d`` modules so
 (``layer.{0,1,3,4}``, ``conv``); the forward runs the port's own ops:
 ``ops/conv.py`` (library conv) for convs that stay on the library, kernel B
 for the full-resolution 3x3 convs, and kernel A for every instance norm +
-ReLU. Initialization is the reference's: conv weights ~ N(0, 0.02), biases
-zero, instance-norm affine (1, 0).
+ReLU. The full-resolution row's convs run kernel B where Co <= 64, which is
+where the JAX package runs its packed Pallas conv (2 Co <= 128 lanes); a
+wider row (nf > 64) takes the library conv, as the JAX package takes XLA's.
+Initialization is the reference's: conv weights ~ N(0, 0.02), biases zero,
+instance-norm affine (1, 0).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 from torch import nn
 
 from tactile_gan_torch.ops.conv import conv2d
-from tactile_gan_torch.ops.kernels.conv3x3 import conv3x3
+from tactile_gan_torch.ops.kernels import conv3x3 as kb
 from tactile_gan_torch.ops.kernels.instance_norm import instance_norm_act
 
 
@@ -29,7 +32,7 @@ def conv_norm_relu(x: torch.Tensor, conv: nn.Conv2d, norm: nn.InstanceNorm2d,
     ``kernel_conv`` runs the (3x3/s1/p1, bias-free) conv through kernel B.
     """
     if kernel_conv:
-        y = conv3x3(x, conv.weight, compute_dtype=compute_dtype)
+        y = kb.conv3x3(x, conv.weight, compute_dtype=compute_dtype)
     else:
         y = conv2d(x, conv.weight, stride=conv.stride[0],
                    padding=conv.padding[0], bias=conv.bias,
@@ -42,8 +45,8 @@ class DoubleConvBlock(nn.Module):
     affine norms).
 
     ``full_res`` marks a block of the full-resolution row, whose convs run
-    kernel B; the ``stem`` block's first conv (3 input channels) stays on
-    the library conv, as in the JAX package.
+    kernel B where ``features`` <= 64; the ``stem`` block's first conv (3
+    input channels) stays on the library conv, as in the JAX package.
     """
 
     def __init__(self, in_channels: int, features: int, *,
@@ -51,7 +54,8 @@ class DoubleConvBlock(nn.Module):
                  full_res: bool = False, stem: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.kernel_convs = (full_res and not stem, full_res)
+        b = full_res and kb.supported(features)
+        self.kernel_convs = (b and not stem, b)
         self.layer = nn.Sequential(
             nn.Conv2d(in_channels, features, 3, padding=1, bias=False),
             nn.InstanceNorm2d(features, affine=True),

@@ -9,7 +9,7 @@ module on a host without nvcc.
 
     python -m tactile_gan_torch.ops.kernels.build SRC.cu [SRC.cu ...]
 
-compiles each source with these flags into a temporary directory and prints
+compiles each source with its flags into a temporary directory and prints
 ptxas's registers and spills for each kernel in it (to compare two versions
 of a source).
 """
@@ -26,6 +26,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -34,12 +35,18 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one source beside NVCC_FLAGS. ptxas of CUDA 12.9 segfaults on the
+# wgmma kernel at -O3 and -O2: the trigger is its fence.proxy.async (either
+# form), which the kernel needs (without it the products read stale shared
+# memory). -O1 builds it with no spills.
+SOURCE_FLAGS = {"conv3x3_fwd_sm90": ("-Xptxas", "-O1")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# ptxas's report (registers, shared memory, spills) of each build this
-# process made, by kernel source name.
+# ptxas's report (registers, shared memory, spills) and the nvcc seconds of
+# each build this process made, by kernel source name.
 build_logs: Dict[str, str] = {}
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -51,9 +58,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for csrc/<name>.cu."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -64,10 +76,12 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    build_seconds[name] = time.perf_counter() - t0
     build_logs[name] = proc.stderr
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     return out
@@ -108,11 +122,12 @@ def ptxas_report(log: str) -> Dict[str, str]:
 
 
 def compile_report(src: str) -> Dict[str, str]:
-    """ptxas's report for one source compiled with NVCC_FLAGS into a
-    temporary directory."""
+    """ptxas's report for one source compiled with its flags (by file
+    name) into a temporary directory."""
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(tmp, "k.so"), src],
+            [_nvcc(), *flags(Path(src).stem), "-o", os.path.join(tmp, "k.so"),
+             src],
             capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")

@@ -7,22 +7,30 @@ Replaces the Pallas kernel ``tactile_gan_tpu/ops/pallas/conv3x3.py``
 ``conv3x3_packed`` (reached through ``ops/packed_row.py``), in both of its
 uses: the forward and dx, which is the same conv of the gradient with the
 rotated-transposed weight (``_rot_t``). Its packed operand is NHWC memory,
-so on the card it is a plain channels-last conv; the CUDA source is
-``csrc/conv3x3.cu``. Bound on the card: operations
-(2*9*Cin*Co flops a pixel against (Cin+Co) elements moved) at the tensor
-cores' bf16 rate, or the bytes where a float32 input has few channels. The
-design is an implicit GEMM: a block streams 16-channel slices of a haloed
-8x32-pixel input tile and of the weights through a two-stage shared-memory
-ring and runs mma.sync bf16 products with float32 accumulators; float32
-compute runs on the CUDA cores. The wrapper re-lays each weight once (and
-again only after an in-place update of it) into the layout the kernel reads.
+so on the card it is a plain channels-last conv. The forward at Co 64 with
+bf16 operands (every row-0 conv of UNet++ nf=64, serving and training) runs
+the wgmma kernel of ``csrc/conv3x3_fwd_sm90.cu``; the forward at Co 16/32
+or float32 compute and dx run ``csrc/conv3x3.cu``. Bound on the card:
+operations (2*9*Cin*Co flops a pixel against (Cin+Co) elements moved) at
+the tensor cores' bf16 rate, or the bytes where the input is float32. Both
+are implicit GEMMs that stream 16-channel slices of a haloed input tile and
+of the weights through a two-stage shared-memory ring with float32
+accumulators: 4x64-pixel tiles on wgmma (Co 64, bf16), 8x32-pixel tiles on
+mma.sync (the rest of bf16 compute); float32 compute runs on the CUDA cores.
+The wrapper re-lays each weight once per entry (and again only after an
+in-place update of it) into the layout the kernel reads.
 
 Numerics, kernel and plain version alike: operands rounded to
 ``compute_dtype`` (bfloat16 or float32), products and sums in float32, the
-output in the input's dtype. Cin is any multiple of 8 (the port convolves
-the concatenated node input, up to 384 channels at nf=64); Co is 16, 32 or
-64. The dx conv has Co = the forward's Cin, walked in output-channel tiles
-by one launch. On a CPU tensor the Function runs the plain versions; on a
+output in the input's dtype. B takes any Cin (the port convolves the
+concatenated node input, up to 384 channels at nf=64) and any Co up to 64,
+the convs the JAX package gives its packed kernel (2 Co <= 128 lanes). Cin
+a multiple of 8 with Co 16, 32 or 64 runs the entries above; any other
+widths (UNet++ at nf 8, 12 or 24) run the same body instantiated with
+kernel E's tail flag, which writes float32 (cast to a bfloat16 input's
+dtype after). The dx conv has Co = the forward's Cin, walked in
+output-channel tiles by one launch, and takes the tail instantiation on the
+same condition. On a CPU tensor the Function runs the plain versions; on a
 CUDA tensor it launches the kernels or raises. It is first-order only: a
 backward run while building a graph for a second derivative raises.
 
@@ -51,11 +59,13 @@ from tactile_gan_torch.ops.kernels.conv3x3_wgrad import conv3x3_wgrad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COMPUTE = (torch.bfloat16, torch.float32)
-_CO = (16, 32, 64)
+_CO = (16, 32, 64)  # Co of the entries without the tail flag
+MAX_CO = 64
 _KC = 16  # Cin slice of the bf16 kernel (csrc kKC)
 _KCF = 8  # Cin slice of the float32 kernel (csrc kKCF)
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_sm90: Optional[ctypes.CDLL] = None
 
 
 def _load() -> ctypes.CDLL:
@@ -74,6 +84,26 @@ def _load() -> ctypes.CDLL:
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _load_sm90() -> ctypes.CDLL:
+    global _lib_sm90
+    if _lib_sm90 is None:
+        lib = build.load("conv3x3_fwd_sm90")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.conv3x3_fwd_sm90.argtypes = [p, p, p, i, i, i, i, i, i, p]
+        lib.conv3x3_fwd_sm90.restype = i
+        lib.cuda_error_string.argtypes = [i]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _lib_sm90 = lib
+    return _lib_sm90
+
+
+def supported(co: int) -> bool:
+    """Whether kernel B takes a conv of Co output channels (any Cin): the
+    model routes a wider conv to the library conv (``ops/conv.py``), as the
+    JAX package routes it to XLA's conv."""
+    return 1 <= co <= MAX_CO
 
 
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor, *,
@@ -124,16 +154,33 @@ def relayout_weight(weight: torch.Tensor, compute_dtype: torch.dtype,
     return w.to(compute_dtype).contiguous()
 
 
+def relayout_weight_sm90(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW -> the layout the wgmma kernel reads: [Cin_pad / 16][9 taps]
+    [2 chunks][Co][8] bfloat16, Cin zero-padded to a multiple of 16. One
+    16-channel slice's weights are contiguous and are copied into shared
+    memory as they lie: per tap, two planes (channels 0-7 and 8-15 of the
+    slice) of Co rows of 8 channels."""
+    co, cin = weight.shape[:2]
+    w = weight.permute(2, 3, 0, 1).reshape(9, co, cin)
+    w = F.pad(w, (0, (-cin) % _KC))
+    w = w.reshape(9, co, -1, 2, 8).permute(2, 0, 3, 1, 4)
+    return w.to(torch.bfloat16).contiguous()
+
+
 def hwio_to_oihw(k: torch.Tensor) -> torch.Tensor:
     """(3, 3, Cin, Co) -> (Co, Cin, 3, 3), a view."""
     return k.permute(3, 2, 0, 1)
 
 
-# How each use re-lays its weight: B's forward (OIHW), B-dx (the
+# How each use re-lays its weight: B's forward (OIHW; the wgmma entry's
+# own layout at Co 64 with bf16 compute; Co padded to its tile for the tail
+# instantiation), B-dx (the
 # rotated-transposed OIHW weight, Co = the forward's Cin walked in tiles) and
 # kernel E (HWIO, any Co, walked in tiles).
 _RELAYOUTS = {
     "forward": lambda w, cd: relayout_weight(w, cd),
+    "forward_tail": lambda w, cd: relayout_weight(w, cd, co_tile(w.shape[0])),
+    "forward_sm90": lambda w, cd: relayout_weight_sm90(w),
     "dgrad": lambda w, cd: relayout_weight(rot_t(w), cd, co_tile(w.shape[1])),
     "p1": lambda k, cd: relayout_weight(hwio_to_oihw(k), cd,
                                         co_tile(k.shape[3])),
@@ -158,9 +205,60 @@ def _kernel_weight(weight: torch.Tensor, compute_dtype: torch.dtype,
     return wk
 
 
+SM90_ENTRY = "conv3x3_fwd_sm90"
+BODY_ENTRY = "conv3x3_forward"
+TAIL_ENTRY = "conv3x3_p1_forward"
+
+
+def in_body(cin: int, co: int) -> bool:
+    """Whether a conv of these widths runs the entries without the tail
+    flag (``conv3x3_forward``, ``conv3x3_dgrad``, the wgmma kernel)."""
+    return cin % 8 == 0 and co in _CO
+
+
+def forward_entry(cin: int, co: int, compute_dtype: torch.dtype) -> str:
+    """The CUDA entry that runs B's forward: the wgmma kernel at Co 64 with
+    bf16 operands (either input dtype), the body of ``csrc/conv3x3.cu`` at
+    the rest of its domain, and that body's tail instantiation elsewhere."""
+    if not in_body(cin, co):
+        return TAIL_ENTRY
+    if co == 64 and compute_dtype == torch.bfloat16:
+        return SM90_ENTRY
+    return BODY_ENTRY
+
+
+def _check_aligned(t: torch.Tensor, what: str) -> None:
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{what} needs a contiguous, 16-byte aligned NHWC "
+                         f"tensor; got shape {tuple(t.shape)}, strides "
+                         f"{t.stride()}")
+
+
+def _tail_kernel(x: torch.Tensor, wk: torch.Tensor, co: int,
+                 compute_dtype: torch.dtype) -> torch.Tensor:
+    """The body with the tail flag (kernel E's instantiation) on a CUDA
+    tensor: any Cin and Co, float32 out; ``wk`` is laid out by
+    ``relayout_weight`` with Co padded to ``co_tile(co)``. The caller counts
+    the launch."""
+    n, h, w, cin = x.shape
+    bf16 = compute_dtype == torch.bfloat16
+    y = torch.empty((n, h, w, co), dtype=torch.float32, device=x.device)
+    lib = _load()
+    err = lib.conv3x3_p1_forward(
+        x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin,
+        wk.shape[-1] if bf16 else wk.shape[1], co, co_tile(co),
+        _DTYPES[x.dtype], int(bf16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("conv3x3 (tail) kernel launch failed: "
+                           + lib.cuda_error_string(err).decode())
+    return y
+
+
 def forward_kernel(x: torch.Tensor, weight: torch.Tensor,
                    compute_dtype: torch.dtype) -> torch.Tensor:
-    """Kernel B's forward on a CUDA tensor."""
+    """Kernel B's forward on a CUDA tensor, through ``forward_entry``'s
+    entry."""
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3: unsupported device {x.device}")
     if x.dim() != 4 or x.dtype not in _DTYPES:
@@ -168,23 +266,34 @@ def forward_kernel(x: torch.Tensor, weight: torch.Tensor,
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
     n, h, w, cin = x.shape
     if (weight.dim() != 4 or weight.shape[1:] != (cin, 3, 3)
-            or weight.shape[0] not in _CO or weight.device != x.device):
+            or not supported(weight.shape[0]) or weight.device != x.device):
         raise ValueError(f"conv3x3 kernel needs a (Co, {cin}, 3, 3) weight "
-                         f"with Co in {_CO} on {x.device}, got "
+                         f"with Co <= {MAX_CO} on {x.device}, got "
                          f"{tuple(weight.shape)} on {weight.device}")
-    if cin % 8 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("conv3x3 kernel needs Cin % 8 == 0 and a contiguous, "
-                         f"16-byte aligned NHWC tensor; got shape "
-                         f"{tuple(x.shape)}, strides {x.stride()}")
+    _check_aligned(x, "conv3x3 kernel")
     co = weight.shape[0]
-    bf16 = compute_dtype == torch.bfloat16
-    wk = _kernel_weight(weight, compute_dtype)
+    entry = forward_entry(cin, co, compute_dtype)
+    if entry == TAIL_ENTRY:
+        wk = _kernel_weight(weight, compute_dtype, "forward_tail")
+        y = _tail_kernel(x, wk, co, compute_dtype).to(x.dtype)
+        conv3x3.launches += 1
+        return y
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
-    lib = _load()
-    err = lib.conv3x3_forward(
-        x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin,
-        wk.shape[-1] if bf16 else cin, co, _DTYPES[x.dtype], int(bf16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    if entry == SM90_ENTRY:
+        wk = _kernel_weight(weight, compute_dtype, "forward_sm90")
+        lib = _load_sm90()
+        err = lib.conv3x3_fwd_sm90(
+            x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin,
+            wk.shape[0] * _KC, _DTYPES[x.dtype], stream)
+    else:
+        bf16 = compute_dtype == torch.bfloat16
+        wk = _kernel_weight(weight, compute_dtype)
+        lib = _load()
+        err = lib.conv3x3_forward(
+            x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin,
+            wk.shape[-1] if bf16 else cin, co, _DTYPES[x.dtype], int(bf16),
+            stream)
     if err:
         raise RuntimeError("conv3x3 kernel launch failed: "
                            + lib.cuda_error_string(err).decode())
@@ -199,19 +308,22 @@ def dgrad_kernel(g: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"conv3x3 dgrad: unsupported device {g.device}")
     co, cin = weight.shape[:2]
     if (g.dim() != 4 or g.dtype not in _DTYPES or g.shape[-1] != co
-            or co not in _CO or weight.shape[2:] != (3, 3)
+            or not supported(co) or weight.shape[2:] != (3, 3)
             or weight.device != g.device):
         raise ValueError(f"conv3x3 dgrad kernel needs an NHWC float32 or "
-                         f"bfloat16 gradient of {co} channels (Co in {_CO}) "
-                         f"on the weight's device; got {g.dtype} "
+                         f"bfloat16 gradient of {co} channels (Co <= "
+                         f"{MAX_CO}) on the weight's device; got {g.dtype} "
                          f"{tuple(g.shape)} on {g.device}")
-    if cin % 8 or not g.is_contiguous() or g.data_ptr() % 16:
-        raise ValueError("conv3x3 dgrad kernel needs Cin % 8 == 0 and a "
-                         "contiguous, 16-byte aligned gradient; got Cin "
-                         f"{cin}, strides {g.stride()}")
+    _check_aligned(g, "conv3x3 dgrad kernel")
     n, h, w, _ = g.shape
     bf16 = compute_dtype == torch.bfloat16
+    # The rotated-transposed weight, its Co (the forward's Cin) padded to
+    # its tile: the layout of both the dgrad entry and the tail one.
     wk = _kernel_weight(weight, compute_dtype, "dgrad")
+    if not in_body(cin, co):
+        dx = _tail_kernel(g, wk, cin, compute_dtype).to(g.dtype)
+        dgrad_kernel.launches += 1
+        return dx
     dx = torch.empty((n, h, w, cin), dtype=g.dtype, device=g.device)
     lib = _load()
     err = lib.conv3x3_dgrad(
@@ -313,24 +425,9 @@ def _check_p1(name: str, x: torch.Tensor, k: torch.Tensor,
 def _p1_kernel(x: torch.Tensor, k: torch.Tensor, compute_dtype: torch.dtype,
                counter) -> torch.Tensor:
     """Kernel E on a CUDA tensor; ``counter.launches`` counts the launch."""
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("kernel E needs a contiguous, 16-byte aligned NHWC "
-                         f"tensor; got shape {tuple(x.shape)}, strides "
-                         f"{x.stride()}")
-    n, h, w, cin = x.shape
-    co = k.shape[3]
-    bf16 = compute_dtype == torch.bfloat16
-    wk = _kernel_weight(k, compute_dtype, "p1")
-    y = torch.empty((n, h, w, co), dtype=torch.float32, device=x.device)
-    lib = _load()
-    err = lib.conv3x3_p1_forward(
-        x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin,
-        wk.shape[-1] if bf16 else wk.shape[1], co, co_tile(co),
-        _DTYPES[x.dtype], int(bf16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError("conv3x3_p1 kernel launch failed: "
-                           + lib.cuda_error_string(err).decode())
+    _check_aligned(x, "kernel E")
+    y = _tail_kernel(x, _kernel_weight(k, compute_dtype, "p1"), k.shape[3],
+                     compute_dtype)
     counter.launches += 1
     return y
 

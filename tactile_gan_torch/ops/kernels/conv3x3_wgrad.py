@@ -9,9 +9,12 @@ over blocks and the partials summed by a second launch in a fixed order, so
 the result is the same on every run.
 
 Numerics, kernel and plain version alike: x and g rounded to
-``compute_dtype`` (bfloat16 or float32), products and sums in float32. On a
-CPU tensor the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises.
+``compute_dtype`` (bfloat16 or float32), products and sums in float32. It
+takes any Cin and any Co up to 64, as kernel B does. The kernel reads
+channels in groups of 8: where Cin or Co is not a multiple of 8 (UNet++ at
+nf 12) the wrapper zero-pads x or g to one (a copy of each padded tensor),
+which adds zero rows to dk that it drops. On a CPU tensor the wrapper runs
+the plain version; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -93,10 +96,13 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, *,
                          f"{tuple(g.shape)}")
     n, h, w, cin = x.shape
     co = g.shape[-1]
-    if cin % 8 or co % 8 or co > _MAX_CO:
-        raise ValueError(f"conv3x3_wgrad kernel needs Cin % 8 == 0 and Co a "
-                         f"multiple of 8 up to {_MAX_CO}; got Cin {cin}, "
-                         f"Co {co}")
+    if not 1 <= co <= _MAX_CO:
+        raise ValueError(f"conv3x3_wgrad kernel needs Co up to {_MAX_CO}; "
+                         f"got Co {co}")
+    if cin % 8 or co % 8:
+        dk = conv3x3_wgrad(F.pad(x, (0, (-cin) % 8)), F.pad(g, (0, (-co) % 8)),
+                           compute_dtype=compute_dtype)
+        return dk[:co, :cin].contiguous()
     for t in (x, g):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("conv3x3_wgrad kernel needs contiguous, 16-byte "

@@ -11,6 +11,11 @@ reduction across blocks so the full-resolution row (64 channels of 65,536
 pixels per image) still fills the 132 SMs, merge the partials in a finalize
 launch, then run an elementwise pass.
 
+Both take any C. The kernels read channels in groups of 8: where C is not a
+multiple of 8 (UNet++ at nf 12) the wrapper zero-pads x (and g) to one, with
+scale 1 and offset 0 on the added channels, and drops them from what it
+returns, at the cost of a copy of each padded tensor.
+
 Statistics: float32, biased variance, eps 1e-5. The kernel's Welford/Chan
 merge gives the two-pass variance to rounding; the plain version is the
 two-pass ``ops/norm.py``. The TPU kernel's single-pass E[x^2] - m^2 is not
@@ -164,10 +169,18 @@ def _check_kernel_input(x: torch.Tensor, what: str) -> None:
     if x.dim() != 4 or x.dtype not in _DTYPES:
         raise ValueError(f"{what} kernel takes a 4-d NHWC float32 or bfloat16 "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
-    if x.shape[-1] % 8 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"{what} kernel needs C % 8 == 0 and a contiguous, "
-                         f"16-byte aligned NHWC tensor; got shape "
-                         f"{tuple(x.shape)}, strides {x.stride()}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs a contiguous, 16-byte aligned "
+                         f"NHWC tensor; got shape {tuple(x.shape)}, strides "
+                         f"{x.stride()}")
+
+
+def _pad_channels(t: Optional[torch.Tensor], pad: int,
+                  fill: float = 0.0) -> Optional[torch.Tensor]:
+    """t with ``pad`` channels of ``fill`` added on its last axis."""
+    if t is None:
+        return None
+    return torch.nn.functional.pad(t, (0, pad), value=fill)
 
 
 def _raise_on_error(lib, err: int, what: str) -> None:
@@ -184,6 +197,12 @@ def forward_kernel(x: torch.Tensor, weight: Optional[torch.Tensor],
     _check_act(act)
     _check_kernel_input(x, "instance_norm_act")
     n, h, w, c = x.shape
+    if c % 8:
+        pad = (-c) % 8
+        y, stats = forward_kernel(
+            _pad_channels(x, pad), _pad_channels(weight, pad, 1.0),
+            _pad_channels(bias, pad), act, negative_slope)
+        return y[..., :c].contiguous(), stats[:, :c].contiguous()
     wt = _affine(weight, c, 1.0, x)
     bs = _affine(bias, c, 0.0, x)
     hw = h * w
@@ -221,6 +240,15 @@ def backward_kernel(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
             or not stats.is_contiguous() or stats.device != x.device):
         raise ValueError(f"stats must be contiguous float32 (N, C, 2) on "
                          f"{x.device}, got {stats.dtype} {tuple(stats.shape)}")
+    if c % 8:
+        # The added channels: x and g zero, stats zero, so their dx is zero.
+        pad = (-c) % 8
+        dx, dscale, doffset = backward_kernel(
+            _pad_channels(x, pad), _pad_channels(g, pad),
+            torch.nn.functional.pad(stats, (0, 0, 0, pad)),
+            _pad_channels(weight, pad, 1.0), _pad_channels(bias, pad), act,
+            negative_slope)
+        return dx[..., :c].contiguous(), dscale[:c], doffset[:c]
     wt = _affine(weight, c, 1.0, x)
     bs = _affine(bias, c, 0.0, x)
     hw = h * w

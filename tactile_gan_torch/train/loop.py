@@ -9,11 +9,16 @@ Left out for now (the trainer refuses them): periodic checkpoints
 augmentation of ``--no-host_aug``, the version-2 perceptual loss and the
 network variants ``--space_to_depth`` and ``--disc_same_pad``,
 ``--legacy_label_cache``. ``--continue_training`` reads a checkpoint the
-port wrote.
+port wrote. ``--debug_nans`` raises ``FloatingPointError`` after the first
+step whose losses are not finite (the JAX package also turns on
+``jax_debug_nans``, which raises inside the step at the first non-finite
+operation; the port has no such per-operation check), and ``--profile_dir``
+traces the first epoch, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -33,6 +38,7 @@ from tactile_gan_torch.train.state import TrainState, make_optimizer
 from tactile_gan_torch.train.step import METRICS, build_train_step
 from tactile_gan_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from tactile_gan_torch.utils.io import mkdir
+from tactile_gan_torch.utils.profiling import nan_guard, trace
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
@@ -125,18 +131,27 @@ class Trainer:
             apply_gp = (cfg.reg_every != 0 and epoch % cfg.reg_every == 0
                         and cfg.lambda_gp != 0)
             t0 = time.time()
+            profiler = (trace(cfg.profile_dir, self.device.type == "cuda")
+                        if cfg.profile_dir and i == 0
+                        else contextlib.nullcontext())
             metrics = []
-            for src_u8, tgt_u8, _ in self.dataset.batches(
-                    cfg.batch_size, shuffle=True, seed=cfg.seed + epoch,
-                    drop_last=not self.pad_mode, pad_to_batch=self.pad_mode,
-                    threads=cfg.threads, host_augment=host_aug,
-                    augment_seed=cfg.seed + 7919 * epoch):
-                src = torch.from_numpy(src_u8).to(self.device)
-                tgt = torch.from_numpy(tgt_u8).to(self.device)
-                metrics.append(self.step_fn(self.state, src, tgt,
-                                            apply_gp=apply_gp,
-                                            generator=self.rng))
-            # One device-to-host transfer per epoch.
+            with profiler:
+                for src_u8, tgt_u8, _ in self.dataset.batches(
+                        cfg.batch_size, shuffle=True, seed=cfg.seed + epoch,
+                        drop_last=not self.pad_mode,
+                        pad_to_batch=self.pad_mode, threads=cfg.threads,
+                        host_augment=host_aug,
+                        augment_seed=cfg.seed + 7919 * epoch):
+                    src = torch.from_numpy(src_u8).to(self.device)
+                    tgt = torch.from_numpy(tgt_u8).to(self.device)
+                    metrics.append(self.step_fn(self.state, src, tgt,
+                                                apply_gp=apply_gp,
+                                                generator=self.rng))
+                    if cfg.debug_nans:  # one transfer a step
+                        nan_guard(dict(zip(METRICS, metrics[-1].tolist())),
+                                  step_info=f"(epoch {epoch}, step "
+                                            f"{self.state.step})")
+            # One device-to-host transfer per epoch (without --debug_nans).
             means = dict(zip(METRICS, torch.stack(metrics).mean(dim=0)
                              .cpu().numpy().tolist()))
             self.epoch_seconds.append(time.time() - t0)

@@ -15,12 +15,19 @@ B-dx, D, library convs, everything else) and for the kernels that took the
 most, and the share of the profiled window in which no kernel ran. Needs a
 CUDA device; the JSON goes to ``--out``. A profile that records no device
 kernel reports the device times as not measured instead of zeros.
+
+The trainer's hooks live here too: ``trace`` (``--profile_dir``, a
+``torch.profiler`` trace of the first epoch) and ``nan_guard``
+(``--debug_nans``, a check of each step's losses), the port of
+``tactile_gan_tpu/utils/profiling.py``'s pair.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -35,15 +42,45 @@ OWN_FAMILIES = (
     ("kernel_a", ("stats_kernel", "finalize_kernel", "apply_kernel")),
     ("kernel_c", ("in_bwd_reduce_kernel", "in_bwd_finalize_kernel",
                   "in_bwd_dx_kernel")),
-    ("kernel_b", ("conv3x3_bf16_kernel", "conv3x3_f32_kernel")),
+    ("kernel_b", ("conv3x3_fwd_sm90_kernel", "conv3x3_bf16_kernel",
+                  "conv3x3_f32_kernel")),
     ("kernel_b_dx", ("conv3x3_dgrad_bf16_kernel", "conv3x3_dgrad_f32_kernel")),
     ("kernel_d", ("wgrad_bf16_kernel", "wgrad_f32_kernel",
                   "wgrad_reduce_kernel")),
+    # conv3x3.cu's body with the tail flag: kernel E, and B and B-dx at
+    # widths off their own entries (UNet++ at nf 8, 12, 24).
+    ("conv3x3_tail", ("conv3x3_p1_bf16_kernel", "conv3x3_p1_f32_kernel")),
 )
 _OWN = [(fam, re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(keys) + r")\b"))
         for fam, keys in OWN_FAMILIES]
 # Substrings of the library's convolution kernels.
 LIBRARY_CONV = ("conv", "xmma", "cudnn", "cutlass", "gemm", "sm90_", "sm80_")
+
+
+def nan_guard(metrics: Dict[str, float], step_info: str = "") -> None:
+    """Raise FloatingPointError if any value of ``metrics`` is not finite."""
+    bad = {k: v for k, v in metrics.items() if not math.isfinite(v)}
+    if bad:
+        raise FloatingPointError(f"non-finite losses {bad} {step_info}")
+
+
+@contextlib.contextmanager
+def trace(logdir: str, cuda: bool):
+    """Profile the enclosed work (host, and the card's kernels where
+    ``cuda``) and write it into ``logdir`` as a TensorBoard / Chrome trace
+    (``*.pt.trace.json``)."""
+    import torch
+    from torch.profiler import (
+        ProfilerActivity, profile, tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
+        if cuda:
+            torch.cuda.synchronize()
 
 
 def card_line() -> str:
