@@ -19,13 +19,18 @@ Phases, each raising on failure (each prints its seconds):
      backward), B-dx and D (the conv's input and weight gradients); and
      kernel E (conv3x3_p1, conv3x3_p1_h) at Cin and Co from 1 to 96, odd H
      and W, partial tiles, batches of 1 and 3, float32 and bf16 inputs, both
-     compute dtypes, through both names;
+     compute dtypes, through both names; D with bf16 operands (the wgmma
+     kernel of csrc/conv3x3_wgrad_sm90.cu) also at W not a multiple of its
+     64-column strip, H 1 and 3, batch 3, Cin 72 (a second, partly full ci
+     tile) and runs that cross strips, both input dtypes, two runs equal;
   2. the same at every shape the serving forward and the training step give
      each kernel, with times: the kernel, its plain version and one library
      call computing the same function (a yardstick only: the port never
      calls it), beside the least time the card could take (bytes /
-     3.35 TB/s or flops / peak); two faults planted on the wgmma kernel's
-     output must fail the per-shape check;
+     3.35 TB/s or flops / peak); two faults planted on the wgmma forward's
+     output and three on the wgmma weight gradient must fail the per-shape
+     check; D's rows print the previous body's time where --baseline gives
+     the parent's JSON from the same call;
   3. train: synthetic chart pairs are written as data/train under a
      temporary work root and ``tactile_gan_torch.cli.train.main`` runs at
      its defaults (UNet++ nf=64, batch 4, 256x256, ls loss with label
@@ -217,6 +222,13 @@ EDGE_A = [((3, 7, 5, 24), "leaky_relu", True), ((2, 9, 13, 136), None, False),
 EDGE_B = [((2, 37, 53, 24), 32), ((1, 9, 17, 8), 16), ((1, 40, 70, 40), 64),
           ((2, 37, 53, 12), 12), ((1, 9, 17, 36), 24), ((2, 19, 45, 64), 8),
           ((1, 7, 9, 3), 40)]
+# D with bf16 operands (the wgmma kernel), (N, H, W, Cin) and Co: W not a
+# multiple of its 64-column strip, H 1 and 3, batch 3, Cin 72 (two ci tiles,
+# the second 8 channels full), a single pixel, and Cin 1024 (16 ci tiles,
+# 8 chunks: runs of 15 rows that cross the 20-row strips).
+EDGE_D_SM90 = [((3, 3, 70, 72), 64), ((1, 1, 130, 64), 64),
+               ((2, 3, 63, 8), 16), ((3, 17, 200, 136), 40),
+               ((1, 1, 1, 8), 8), ((2, 20, 130, 1024), 64)]
 # B's forward at Co 64 with bf16 operands (the wgmma kernel): W not a
 # multiple of its 64-pixel tile, H not a multiple of its 4 rows, Cin 8 and 40
 # (one slice half empty), batch 3, a single pixel.
@@ -333,6 +345,23 @@ def phase_edges(torch, ka, kb, kd, seed):
                                 kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd))
             print(f"B-dx/D edge {list(shape)} co={co} {dn}/{cn}: max|diff| "
                   f"{err:.3e} / {err_d:.3e}", flush=True)
+    for shape, co in EDGE_D_SM90:
+        for in_dt in (torch.float32, torch.bfloat16):
+            dn = str(in_dt).split(".")[1]
+            x = torch.randn(shape, device="cuda", generator=gen).to(in_dt)
+            g = torch.randn(shape[:3] + (co,), device="cuda",
+                            generator=gen).to(in_dt)
+            dk = kd.conv3x3_wgrad(x, g)
+            torch.cuda.synchronize()
+            err = check_share(f"D sm90 edge {shape} co {co} {dn}", dk,
+                              kd.conv3x3_wgrad_plain(x, g))
+            if not torch.equal(dk, kd.conv3x3_wgrad(x, g)):
+                raise AssertionError(f"D sm90 edge {shape} {dn}: two runs "
+                                     "differ")
+            print(f"D edge {list(shape)} co={co} {dn}/bfloat16 "
+                  f"({kd.partial_entry(torch.bfloat16)}, plan "
+                  f"{kd.launch_plan(*shape)}): max|diff| {err:.3e}",
+                  flush=True)
     # Kernel E off B's domain; its output is float32 whatever the input.
     pairs = [(c, co) for c in E_CIN for co in E_CO] + [(96, 96)]
     for i, (c, co) in enumerate(pairs):
@@ -475,10 +504,41 @@ def plant_sm90_faults(torch, kb, x, wt, ref):
     return out
 
 
-def phase_train_kernels(torch, ka, kb, kd, seed, record):
+def plant_wgrad_faults(torch, kd, x, g, want):
+    """Three faults planted on the wgmma weight gradient at one training
+    shape: dk x 1.0005; g's last 64-pixel row of one strip zeroed, as a
+    kernel that skipped the last row step of a run would give; x shifted by
+    one column, as a wrong dw offset would give. Each must fail check_share
+    against ``want``, the plain version of the unchanged inputs; returns
+    their max |diff| and the limit."""
+    gz = g.clone()
+    gz[-1, -1, -64:] = 0
+    xs = torch.zeros_like(x)
+    xs[:, :, 1:] = x[:, :, :-1]
+    planted = {"dk x 1.0005": kd.conv3x3_wgrad(x, g) * 1.0005,
+               "last row step of a strip dropped": kd.conv3x3_wgrad(x, gz),
+               "x shifted one column": kd.conv3x3_wgrad(xs, g)}
+    limit = SUM_SHARE * want.abs().max().item()
+    out = {"limit": limit}
+    for name, dk in planted.items():
+        try:
+            check_share(f"planted {name}", dk, want)
+        except AssertionError:
+            out[name] = (dk - want).abs().max().item()
+            print(f"planted fault on the wgmma weight gradient, {name}: "
+                  f"caught, max|diff| {out[name]:.3e} > limit {limit:.3e}",
+                  flush=True)
+            continue
+        raise AssertionError(f"planted fault {name} on the wgmma weight "
+                             "gradient passed the per-shape check")
+    return out
+
+
+def phase_train_kernels(torch, ka, kb, kd, seed, record, parent_d):
     """Kernels C, B-dx and D against their plain versions at every shape of
     a training step (batch 4, float32 activations, bf16 conv operands), with
-    times."""
+    times. ``parent_d``: shape -> D's ms in the parent's run, printed beside
+    each D row."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
@@ -549,11 +609,15 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record):
         err_dx = check_close(f"B-dx cin {cin}", dx,
                              kb.conv3x3_dgrad_plain(g, wt, compute_dtype=cd),
                              "float32")
-        err_d = check_share(f"D cin {cin}", dk,
-                            kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd))
+        want_d = kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd)
+        err_d = check_share(f"D cin {cin}", dk, want_d)
         dk2 = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
         if not torch.equal(dk, dk2):
             raise AssertionError(f"D cin {cin}: two runs differ")
+        if cin == 64:
+            record["wgrad_faults"] = plant_wgrad_faults(torch, kd, x, g,
+                                                        want_d)
+        del dk, dk2, want_d
         flops = 2 * pix * 9 * cin * 64
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         xl = x.to(cd).permute(0, 3, 1, 2)
@@ -583,10 +647,18 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record):
             row["library_ms"], _ = cuda_ms(lib)
             row["tflops"] = flops / row["ms"] / 1e9
             rows.append(row)
+            parent = ""
+            if name == "D":
+                row["gbps"] = nbytes / row["ms"] / 1e6
+                row["parent_ms"] = parent_d.get(tuple(row["shape"]))
+                parent = f", {row['gbps']:.0f} GB/s) parent body " + (
+                    f"{row['parent_ms']:.4f}" if row["parent_ms"] is not None
+                    else "not given")
             print(f"{name} cin {cin}: max|diff| {err:.3e} ms {row['ms']:.4f} "
-                  f"({row['tflops']:.1f} TFLOP/s) plain {row['plain_ms']:.4f} "
-                  f"library {row['library_ms']:.4f} bound "
-                  f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+                  f"({row['tflops']:.1f} TFLOP/s{parent or ')'} plain "
+                  f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} "
+                  f"bound {row['bound_ms']:.4f} ({row['bound_by']})",
+                  flush=True)
     record["kernel_c"], record["kernel_b_dx"], record["kernel_d"] = (
         c_rows, dx_rows, d_rows)
     return c_rows, dx_rows, d_rows
@@ -1156,7 +1228,16 @@ def main() -> int:
                          "eval_batch 4)")
     ap.add_argument("--out", default=os.path.join("perf_out",
                                                   "chip_smoke.json"))
+    ap.add_argument("--baseline", default=None,
+                    help="the --out JSON of the parent commit's run in the "
+                         "same call: its kernel D times are printed beside "
+                         "this run's")
     args = ap.parse_args()
+    parent_d = {}
+    if args.baseline:
+        with open(args.baseline) as f:
+            parent_d = {tuple(r["shape"]): r["ms"]
+                        for r in json.load(f)["kernel_d"]}
 
     import torch
 
@@ -1178,7 +1259,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "seed": args.seed, "phase_s": {}}
     t0 = time.perf_counter()
     build.build_all(["instance_norm_act", "conv3x3", "conv3x3_fwd_sm90",
-                     "conv3x3_wgrad"])
+                     "conv3x3_wgrad", "conv3x3_wgrad_sm90"])
     record["build_s"] = time.perf_counter() - t0
     print(f"built kernels in {record['build_s']:.1f} s", flush=True)
     record["ptxas"] = {name: build.ptxas_report(log)
@@ -1200,7 +1281,8 @@ def main() -> int:
     a_rows, b_rows = timed("kernels_serving", phase_kernels, torch, ka, kb,
                            args.seed, record)
     c_rows, dx_rows, d_rows = timed("kernels_training", phase_train_kernels,
-                                    torch, ka, kb, kd, args.seed, record)
+                                    torch, ka, kb, kd, args.seed, record,
+                                    parent_d)
     train = timed("train", phase_train, torch, ka, kb, kd, args, record)
     serve = timed("serve", phase_serve, torch, ka, kb, args, record)
     timed("other_widths", phase_nf, torch, ka, kb, kd, args, record)
@@ -1240,7 +1322,7 @@ def main() -> int:
                      pallas + "conv3x3.py:394", launches["conv3x3_dgrad"],
                      dx_rows, lambda r: r["per_step"],
                      per + ", bf16 operands", card),
-        kernel_entry("conv3x3_wgrad", csrc + "conv3x3_wgrad.cu",
+        kernel_entry("conv3x3_wgrad", csrc + "conv3x3_wgrad_sm90.cu",
                      pallas + "conv3x3.py:509", launches["conv3x3_wgrad"],
                      d_rows, lambda r: r["per_step"],
                      per + ", bf16 operands", card),
@@ -1260,6 +1342,17 @@ def main() -> int:
     record["kernel_b_step"] = b_sum
     print(f"B forward a training step: {b_sum['ms']:.4f} ms (cuDNN "
           f"{b_sum['library_ms']:.4f}, bound {b_sum['bound_ms']:.4f})",
+          flush=True)
+    # D a training step likewise, beside the parent's body where given.
+    d_sum = {k: sum(r[k] * r["per_step"] for r in d_rows)
+             for k in ("ms", "library_ms", "bound_ms")}
+    if all(r["parent_ms"] is not None for r in d_rows):
+        d_sum["parent_ms"] = sum(r["parent_ms"] * r["per_step"]
+                                 for r in d_rows)
+    record["kernel_d_step"] = d_sum
+    print(f"D a training step: {d_sum['ms']:.4f} ms (parent body "
+          f"{d_sum.get('parent_ms', float('nan')):.4f}, cuDNN "
+          f"{d_sum['library_ms']:.4f}, bound {d_sum['bound_ms']:.4f})",
           flush=True)
     record["main_path_launches"] = launches
     record["per_forward"] = {

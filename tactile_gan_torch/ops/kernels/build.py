@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Flags of one source beside NVCC_FLAGS. ptxas of CUDA 12.9 segfaults on the
 # wgmma kernel at -O3 and -O2: the trigger is its fence.proxy.async (either
 # form), which the kernel needs (without it the products read stale shared
-# memory). -O1 builds it with no spills.
+# memory). -O1 builds it with no spills. (conv3x3_wgrad_sm90.cu keeps the
+# fence in a __noinline__ function instead and builds at -O3.)
 SOURCE_FLAGS = {"conv3x3_fwd_sm90": ("-Xptxas", "-O1")}
 
 _lock = threading.Lock()

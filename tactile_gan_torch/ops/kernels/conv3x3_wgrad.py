@@ -3,14 +3,17 @@ NHWC activations, OIHW float32 result.
 
 Replaces the Pallas kernel ``tactile_gan_tpu/ops/pallas/conv3x3.py``
 ``conv3x3_packed_wgrad`` (reached from ``ops/packed_row.py``) together with
-its fold ``_dk_from_db``; the CUDA source is ``csrc/conv3x3_wgrad.cu``. It
-is a GEMM with M = 9*Cin, N = Co and K = N*H*W pixels; the pixels are split
-over blocks and the partials summed by a second launch in a fixed order, so
-the result is the same on every run.
+its fold ``_dk_from_db``. It is a GEMM with M = 9*Cin, N = Co and K = N*H*W
+pixels; the pixels are split over blocks, each writes its partial dk, and a
+second launch sums the partials in a fixed order, so the result is the same
+on every run. Two bodies write the partials: with bf16 operands the wgmma
+kernel of ``csrc/conv3x3_wgrad_sm90.cu`` (``SM90_ENTRY``), with float32
+operands the CUDA-core kernel of ``csrc/conv3x3_wgrad.cu`` (``F32_ENTRY``),
+whose ``conv3x3_wgrad_reduce`` sums either's partials.
 
 Numerics, kernel and plain version alike: x and g rounded to
 ``compute_dtype`` (bfloat16 or float32), products and sums in float32. It
-takes any Cin and any Co up to 64, as kernel B does. The kernel reads
+takes any Cin and any Co up to 64, as kernel B does. The kernels read
 channels in groups of 8: where Cin or Co is not a multiple of 8 (UNet++ at
 nf 12) the wrapper zero-pads x or g to one (a copy of each padded tensor),
 which adds zero rows to dk that it drops. On a CPU tensor the wrapper runs
@@ -20,7 +23,7 @@ the plain version; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,25 +32,35 @@ from tactile_gan_torch.ops.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COMPUTE = (torch.bfloat16, torch.float32)
-_TILE = (8, 32)          # output pixels per tile (csrc kMH, kMW)
-_CI = 32                 # input channels per block (csrc kCI)
 _MAX_CO = 64
-_TARGET_BLOCKS = 2 * 132  # two blocks per SM
+_SMS = 132
+SM90_ENTRY = "conv3x3_wgrad_sm90"
+F32_ENTRY = "conv3x3_wgrad_f32"
+SM90_COLS = 64           # columns of a strip (csrc conv3x3_wgrad_sm90 kCols)
+SM90_CI = 64             # input channels per block (kCI there)
+_F32_TILE = (8, 32)      # output pixels per tile (csrc conv3x3_wgrad kMH, kMW)
+_F32_CI = 32             # input channels per block (kCI there)
 
-_lib: Optional[ctypes.CDLL] = None
+# csrc source of each entry; conv3x3_wgrad.cu also holds the reduce.
+_SOURCES = {SM90_ENTRY: "conv3x3_wgrad_sm90", F32_ENTRY: "conv3x3_wgrad"}
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = build.load("conv3x3_wgrad")
+def _load(entry: str) -> ctypes.CDLL:
+    """The library that holds ``entry``, built on first use."""
+    lib = _libs.get(entry)
+    if lib is None:
+        lib = build.load(_SOURCES[entry])
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
-        lib.conv3x3_wgrad.restype = i
+        getattr(lib, entry).argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+        getattr(lib, entry).restype = i
+        if entry == F32_ENTRY:
+            lib.conv3x3_wgrad_reduce.argtypes = [p, p, i, i, i, p]
+            lib.conv3x3_wgrad_reduce.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[entry] = lib
+    return lib
 
 
 def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor, *,
@@ -65,12 +78,29 @@ def conv3x3_wgrad_plain(x: torch.Tensor, g: torch.Tensor, *,
         g.shape[-1], cin, 3, 3).contiguous()
 
 
+def partial_entry(compute_dtype: torch.dtype) -> str:
+    """The CUDA entry that writes D's partials: the wgmma kernel with bf16
+    operands (either input dtype), the CUDA-core kernel in float32."""
+    return SM90_ENTRY if compute_dtype == torch.bfloat16 else F32_ENTRY
+
+
 def launch_plan(n: int, h: int, w: int, cin: int) -> Tuple[int, int]:
-    """(tiles_per_chunk, chunks): the split of the N*ceil(H/8)*ceil(W/32)
-    pixel tiles so that ceil(Cin/32) * chunks blocks fill the card in one
-    wave (two blocks an SM): a 270th block would run alone in a second."""
-    tiles = n * -(-h // _TILE[0]) * -(-w // _TILE[1])
-    want = max(1, _TARGET_BLOCKS // -(-cin // _CI))
+    """(rows_per_chunk, chunks) of the wgmma kernel: its N * ceil(W/64) * H
+    (strip, output row) pairs, strip-major, cut into runs so that the
+    ceil(Cin/64) * chunks blocks (one an SM) fill the 132 SMs in one wave.
+    A run may cross into the next strip."""
+    rows = n * -(-w // SM90_COLS) * h
+    want = max(1, _SMS // -(-cin // SM90_CI))
+    per = -(-rows // min(want, rows))
+    return per, -(-rows // per)
+
+
+def f32_launch_plan(n: int, h: int, w: int, cin: int) -> Tuple[int, int]:
+    """(tiles_per_chunk, chunks) of the float32 kernel: the split of the
+    N*ceil(H/8)*ceil(W/32) pixel tiles so that ceil(Cin/32) * chunks blocks
+    fill the card in one wave (two blocks an SM)."""
+    tiles = n * -(-h // _F32_TILE[0]) * -(-w // _F32_TILE[1])
+    want = max(1, 2 * _SMS // -(-cin // _F32_CI))
     per = -(-tiles // min(want, tiles))
     return per, -(-tiles // per)
 
@@ -107,16 +137,21 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, *,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("conv3x3_wgrad kernel needs contiguous, 16-byte "
                              f"aligned tensors; got strides {t.stride()}")
-    per, chunks = launch_plan(n, h, w, cin)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    entry = partial_entry(compute_dtype)
+    plan = launch_plan if entry == SM90_ENTRY else f32_launch_plan
+    per, chunks = plan(n, h, w, cin)
     part = torch.empty(chunks * 9 * cin * co, dtype=torch.float32,
                        device=x.device)
     dk = torch.empty((co, cin, 3, 3), dtype=torch.float32, device=x.device)
-    lib = _load()
-    err = lib.conv3x3_wgrad(
-        x.data_ptr(), g.data_ptr(), part.data_ptr(), dk.data_ptr(), n, h, w,
-        cin, co, per, chunks, _DTYPES[x.dtype],
-        int(compute_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _load(entry)
+    err = getattr(lib, entry)(
+        x.data_ptr(), g.data_ptr(), part.data_ptr(), n, h, w, cin, co, per,
+        chunks, _DTYPES[x.dtype], stream)
+    if not err:
+        lib = _load(F32_ENTRY)
+        err = lib.conv3x3_wgrad_reduce(part.data_ptr(), dk.data_ptr(), cin,
+                                       co, chunks, stream)
     if err:
         raise RuntimeError("conv3x3_wgrad kernel launch failed: "
                            + lib.cuda_error_string(err).decode())

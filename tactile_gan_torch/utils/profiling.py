@@ -45,7 +45,7 @@ OWN_FAMILIES = (
     ("kernel_b", ("conv3x3_fwd_sm90_kernel", "conv3x3_bf16_kernel",
                   "conv3x3_f32_kernel")),
     ("kernel_b_dx", ("conv3x3_dgrad_bf16_kernel", "conv3x3_dgrad_f32_kernel")),
-    ("kernel_d", ("wgrad_bf16_kernel", "wgrad_f32_kernel",
+    ("kernel_d", ("conv3x3_wgrad_sm90_kernel", "wgrad_f32_kernel",
                   "wgrad_reduce_kernel")),
     # conv3x3.cu's body with the tail flag: kernel E, and B and B-dx at
     # widths off their own entries (UNet++ at nf 8, 12, 24).

@@ -550,7 +550,8 @@ def test_profile_families_tell_the_training_kernels_apart():
             "kernel_b_dx",
         "void (anonymous namespace)::conv3x3_bf16_kernel<float, 64>(...)":
             "kernel_b",
-        "void (anonymous namespace)::wgrad_bf16_kernel<float>(...)": "kernel_d",
+        "void (anonymous namespace)::conv3x3_wgrad_sm90_kernel<float>(...)":
+            "kernel_d",
         "void (anonymous namespace)::wgrad_reduce_kernel(...)": "kernel_d",
         "sm90_xmma_dgrad_implicit_gemm_bf16bf16": "library_conv",
         "void at::native::multi_tensor_apply_kernel<...>(...)": "other"}

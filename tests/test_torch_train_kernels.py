@@ -5,6 +5,8 @@ norm + act backward), kernel B's dx use and kernel D (weight gradient).
 The CUDA kernels are held against these plain versions on the card by
 chip_smoke.py."""
 
+import collections
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -241,13 +243,24 @@ def test_dgrad_weight_relayout_is_cached_beside_the_forward_one():
 
 
 @pytest.mark.parametrize("n,h,w,cin", [(4, 256, 256, 64), (4, 256, 256, 384),
-                                       (2, 37, 53, 24), (1, 9, 17, 8)])
+                                       (2, 37, 53, 24), (1, 9, 17, 8),
+                                       (4, 256, 256, 192), (4, 256, 256, 256),
+                                       (4, 256, 256, 320), (3, 3, 130, 72)])
 def test_wgrad_launch_plan_covers_every_tile(n, h, w, cin):
+    """The wgmma kernel's runs: every (strip, output row) pair, strip-major,
+    in exactly one chunk, no chunk empty; at the training shapes the
+    ceil(Cin/64) * chunks blocks (one an SM) fill the 132 SMs in one wave."""
     per, chunks = kd.launch_plan(n, h, w, cin)
-    tiles = n * -(-h // 8) * -(-w // 32)
-    assert per * chunks >= tiles > per * (chunks - 1)
-    if tiles >= 264:  # the training shapes fill 132 SMs in one wave
-        assert 132 <= chunks * -(-cin // 32) <= 264
+    strips = n * -(-w // 64)
+    rows = strips * h
+    covered = collections.Counter()
+    for c in range(chunks):
+        assert c * per < rows
+        covered.update(divmod(pos, h)
+                       for pos in range(c * per, min(rows, (c + 1) * per)))
+    assert covered == {(s, r): 1 for s in range(strips) for r in range(h)}
+    if (n, h, w) == (4, 256, 256):
+        assert 0.95 * 132 <= chunks * -(-cin // 64) <= 132
 
 
 # ---------------------------------------------------------------------------
