@@ -12,25 +12,31 @@ Phases, each raising on failure (each prints its seconds):
   1. hold each kernel against its plain PyTorch version on the card at
      shapes off the main path (partial tiles, channel counts that are not a
      multiple of 64 or of 8, several output-channel tiles), in float32 and
-     bfloat16: A and B forward (B at Co 64 with bf16 operands is the wgmma
-     kernel of csrc/conv3x3_fwd_sm90.cu, also at W not a multiple of 64, H
-     not a multiple of 4, Cin 8 and 40 and batch 3; B at Co off 16/32/64 or
-     Cin off multiples of 8 is the tail instantiation), C (instance-norm
-     backward), B-dx and D (the conv's input and weight gradients); and
-     kernel E (conv3x3_p1, conv3x3_p1_h) at Cin and Co from 1 to 96, odd H
-     and W, partial tiles, batches of 1 and 3, float32 and bf16 inputs, both
-     compute dtypes, through both names; D with bf16 operands (the wgmma
-     kernel of csrc/conv3x3_wgrad_sm90.cu) also at W not a multiple of its
-     64-column strip, H 1 and 3, batch 3, Cin 72 (a second, partly full ci
-     tile) and runs that cross strips, both input dtypes, two runs equal;
+     bfloat16: A and B forward (B with bf16 operands at Cin % 8 == 0 and Co
+     16/32/64 is the wgmma body of csrc/conv3x3_fwd_sm90.cu, also at W not a
+     multiple of 64, H not a multiple of 4, Cin 8 to 72 and batch 3; B at Co
+     off 16/32/64 or Cin off multiples of 8 is conv3x3.cu's tail), C
+     (instance-norm backward), B-dx and D (the conv's input and weight
+     gradients); B-dx and kernel E on the wgmma body at Co 16 to 384 with a
+     partial last tile, Cin 8 to 72, W not a multiple of 64, H 1 and 3,
+     batch 3, both input dtypes (B-dx writes the input's dtype, E float32);
+     and kernel E (conv3x3_p1, conv3x3_p1_h) at Cin and Co from 1 to 96, odd
+     H and W, partial tiles, batches of 1 and 3, float32 and bf16 inputs,
+     both compute dtypes, through both names; D with bf16 operands (the
+     wgmma kernel of csrc/conv3x3_wgrad_sm90.cu) also at W not a multiple of
+     its 64-column strip, H 1 and 3, batch 3, Cin 72 (a second, partly full
+     ci tile) and runs that cross strips, both input dtypes, two runs equal;
   2. the same at every shape the serving forward and the training step give
      each kernel, with times: the kernel, its plain version and one library
      call computing the same function (a yardstick only: the port never
      calls it), beside the least time the card could take (bytes /
-     3.35 TB/s or flops / peak); two faults planted on the wgmma forward's
-     output and three on the wgmma weight gradient must fail the per-shape
-     check; D's rows print the previous body's time where --baseline gives
-     the parent's JSON from the same call;
+     3.35 TB/s or flops / peak), and B's forward at the training shapes of
+     nf 32 and 16 (Co 32 and 16); two faults planted on the wgmma forward's
+     output, two on B-dx (x 1.01, one Co tile left unwritten) and three on
+     the wgmma weight gradient must fail the per-shape check; where
+     --baseline gives the parent's JSON from the same call, the rows of B,
+     B-dx and D (and E in phase 6) print the parent's time beside their
+     own;
   3. train: synthetic chart pairs are written as data/train under a
      temporary work root and ``tactile_gan_torch.cli.train.main`` runs at
      its defaults (UNet++ nf=64, batch 4, 256x256, ls loss with label
@@ -48,20 +54,21 @@ Phases, each raising on failure (each prints its seconds):
      where matplotlib is not installed; the runner says so), with the
      launch counts of both forward kernels; the card's output for one image
      must match the same weights run on the CPU through the plain path;
-  5. other widths: for nf 8, 12, 24 and 128, cli.train runs one epoch of
-     two steps at 64x64, batch 2, with --debug_nans, cli.test serves the
+  5. other widths: for nf 8, 12, 24, 32 and 128, cli.train runs one epoch
+     of two steps at 64x64, batch 2, with --debug_nans, cli.test serves the
      trained folder, and the card's forward of the trained generator is held
      to the CPU's. At nf <= 64 row 0 runs kernels B, B-dx and D (the tail
-     instantiation, Co 8, 12, 24) and the launch counts must be those of
-     the default width; at nf 128 (Co > 64, the library conv, as the JAX
-     package's XLA conv) no B, B-dx or D launch may happen;
+     at Co 8, 12, 24; the wgmma body at Co 32) and the launch counts must be
+     those of the default width; at nf 128 (Co > 64, the library conv, as
+     the JAX package's XLA conv) no B, B-dx or D launch may happen;
   6. probe_conv: the conv probe entry point
      (``tactile_gan_torch.cli.probe_conv``, the port of
      scripts/probe_pallas_conv.py) at its defaults, B4, 256x256, three
      (Cin, Co) pairs, on cuda. The launch counters must equal the calls the
      probe made through conv3x3_p1, conv3x3_p1_h and conv3x3 (kernels E and
      B); then E, through both names, against its plain version at the
-     probe's inputs, with its ms, the plain and library ms and the bound;
+     probe's inputs, with its ms, the plain and library ms and the bound; a
+     fault planted on E (x 1.01) must fail that check;
   7. one training step on the card against the same step on the CPU (plain
      versions), from the same weights and injected draws, at nf=16, 64x64,
      batch 2, float32 compute with TF32 off, learning rate 0: the losses
@@ -229,11 +236,27 @@ EDGE_B = [((2, 37, 53, 24), 32), ((1, 9, 17, 8), 16), ((1, 40, 70, 40), 64),
 EDGE_D_SM90 = [((3, 3, 70, 72), 64), ((1, 1, 130, 64), 64),
                ((2, 3, 63, 8), 16), ((3, 17, 200, 136), 40),
                ((1, 1, 1, 8), 8), ((2, 20, 130, 1024), 64)]
-# B's forward at Co 64 with bf16 operands (the wgmma kernel): W not a
-# multiple of its 64-pixel tile, H not a multiple of its 4 rows, Cin 8 and 40
-# (one slice half empty), batch 3, a single pixel.
-EDGE_B_SM90 = [(3, 7, 65, 8), (1, 9, 130, 40), (2, 5, 17, 64),
-               (3, 13, 66, 16), (1, 1, 1, 8)]
+# B's forward with bf16 operands (the wgmma body), (N, H, W, Cin) and Co:
+# W not a multiple of its 64-pixel tile, H not a multiple of its 4 rows (1
+# and 3 among them), Cin 8 to 72 (8, 24, 40, 72: a slice half empty), batch
+# 3, a single pixel, every Co tile width.
+EDGE_B_SM90 = [((3, 7, 65, 8), 64), ((1, 9, 130, 40), 64),
+               ((2, 5, 17, 64), 64), ((3, 13, 66, 16), 64), ((1, 1, 1, 8), 64),
+               ((3, 3, 70, 24), 32), ((1, 1, 130, 72), 16),
+               ((2, 6, 63, 40), 32), ((3, 5, 129, 8), 16)]
+# B-dx on the wgmma body, (N, H, W) of g and the forward's (Cin, Co): the dx
+# width (the forward's Cin) 16, 32, 40 (a partial tile of 64), 96 (one whole
+# tile and a half) and 384 (six tiles) over K = the forward's Co 16/32/64,
+# with the shapes of EDGE_B_SM90.
+EDGE_DX_SM90 = [((3, 7, 65), 16, 64), ((1, 1, 130), 32, 16),
+                ((2, 3, 63), 40, 32), ((3, 5, 70), 96, 64),
+                ((1, 3, 129), 384, 64), ((1, 1, 1), 40, 16),
+                ((2, 9, 17), 72, 32)]
+# Kernel E on the wgmma body (bf16 compute, Cin % 8 == 0), (N, H, W), Cin and
+# Co: Co 16/32/40/96/384 (partial last tiles, six tiles), odd Co, Cin 8 to 72.
+EDGE_E_SM90 = [((3, 7, 65), 8, 16), ((1, 1, 130), 24, 32),
+               ((2, 3, 63), 40, 40), ((3, 5, 70), 72, 96),
+               ((1, 3, 129), 24, 384), ((1, 9, 37), 8, 5), ((2, 6, 64), 72, 17)]
 # Kernel E: every (Cin, Co) of these, plus one wider pair (two output-channel
 # tiles), at (N, H, W) taken in turn from E_NHW (odd sizes, partial 8x32 and
 # 8x16 tiles, a single pixel, batches of 1 and 3).
@@ -288,19 +311,54 @@ def phase_edges(torch, ka, kb, kd, seed):
             print(f"B edge {list(shape)} co={co} {dn}/{cn} ("
                   f"{kb.forward_entry(shape[-1], co, cd)}): max|diff| "
                   f"{err:.3e}", flush=True)
-    for shape in EDGE_B_SM90:
+    for shape, co in EDGE_B_SM90:
         for in_dt in (torch.float32, torch.bfloat16):
             dn = str(in_dt).split(".")[1]
             x = torch.randn(shape, device="cuda", generator=gen).to(in_dt)
-            wt = 0.1 * torch.randn((64, shape[-1], 3, 3), device="cuda",
+            wt = 0.1 * torch.randn((co, shape[-1], 3, 3), device="cuda",
                                    generator=gen)
             y = kb.conv3x3(x, wt)
             torch.cuda.synchronize()
-            err = check_close(f"B sm90 edge {shape} {dn}", y,
+            if y.dtype != in_dt:
+                raise AssertionError(f"B sm90 edge: {y.dtype} out of {in_dt}")
+            err = check_close(f"B sm90 edge {shape} co {co} {dn}", y,
                               kb.conv3x3_plain(x, wt), dn)
-            print(f"B edge {list(shape)} co=64 {dn}/bfloat16 ("
-                  f"{kb.forward_entry(shape[-1], 64, torch.bfloat16)}): "
+            print(f"B edge {list(shape)} co={co} {dn}/bfloat16 ("
+                  f"{kb.forward_entry(shape[-1], co, torch.bfloat16)}): "
                   f"max|diff| {err:.3e}", flush=True)
+    for (n, h, w), cin, co in EDGE_DX_SM90:
+        for in_dt in (torch.float32, torch.bfloat16):
+            dn = str(in_dt).split(".")[1]
+            g = torch.randn((n, h, w, co), device="cuda", generator=gen).to(in_dt)
+            wt = 0.1 * torch.randn((co, cin, 3, 3), device="cuda",
+                                   generator=gen)
+            dx = kb.dgrad_kernel(g, wt, torch.bfloat16)
+            torch.cuda.synchronize()
+            if dx.dtype != in_dt or dx.shape != (n, h, w, cin):
+                raise AssertionError(f"B-dx sm90 edge: {dx.dtype} "
+                                     f"{tuple(dx.shape)}")
+            err = check_close(f"B-dx sm90 edge {(n, h, w)} cin {cin} co {co} "
+                              f"{dn}", dx, kb.conv3x3_dgrad_plain(g, wt), dn)
+            print(f"B-dx edge {[n, h, w]} dx co={cin} k={co} {dn}/bfloat16 ("
+                  f"{kb.dgrad_entry(cin, co, torch.bfloat16)}, tiles of "
+                  f"{kb.co_tile(cin)}): max|diff| {err:.3e}", flush=True)
+    for (n, h, w), cin, co in EDGE_E_SM90:
+        for in_dt in (torch.float32, torch.bfloat16):
+            dn = str(in_dt).split(".")[1]
+            x = torch.randn((n, h, w, cin), device="cuda", generator=gen).to(in_dt)
+            k = 0.1 * torch.randn((3, 3, cin, co), device="cuda", generator=gen)
+            want = kb.conv3x3_p1_plain(x, k)
+            for fn in (kb.conv3x3_p1, kb.conv3x3_p1_h):
+                y = fn(x, k)
+                torch.cuda.synchronize()
+                if y.dtype != torch.float32 or y.shape != (n, h, w, co):
+                    raise AssertionError(f"E sm90 edge: {fn.__name__} gave "
+                                         f"{y.dtype} {tuple(y.shape)}")
+                err = check_close(f"E sm90 edge {(n, h, w, cin)} co {co} {dn} "
+                                  f"{fn.__name__}", y, want, "float32")
+            print(f"E edge {[n, h, w, cin]} co={co} {dn}/bfloat16 ("
+                  f"{kb.p1_entry(cin, torch.bfloat16)}, tiles of "
+                  f"{kb.co_tile(co)}): max|diff| {err:.3e}", flush=True)
     # Kernel C at A's edge shapes: its stats come from kernel A.
     for shape, act, affine in EDGE_A:
         c = shape[-1]
@@ -388,8 +446,9 @@ def phase_edges(torch, ka, kb, kd, seed):
               f"dtypes, both names): max|diff| {worst:.3e}", flush=True)
 
 
-def phase_kernels(torch, ka, kb, seed, record):
-    """Kernel vs plain version at every serving shape; then times."""
+def phase_kernels(torch, ka, kb, seed, record, parent):
+    """Kernel vs plain version at every serving shape; then times.
+    ``parent``: the parent's rows by kernel (``load_baseline``)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     a_rows, b_rows = [], []
@@ -461,6 +520,8 @@ def phase_kernels(torch, ka, kb, seed, record):
                 row["library_ms"], _ = cuda_ms(
                     lambda: torch.nn.functional.conv2d(xl, wl, padding=1))
                 row["tflops"] = flops / row["ms"] / 1e9
+                row["parent_ms"] = parent["kernel_b"].get(
+                    (tuple(row["shape"]), 64, dn, cn))
                 row["entry"] = kb.forward_entry(cin, 64, cd)
                 if (row["entry"] == kb.SM90_ENTRY and dn == "float32"
                         and "sm90_faults" not in record):
@@ -471,7 +532,8 @@ def phase_kernels(torch, ka, kb, seed, record):
                       f"max|diff| {err:.3e} "
                       f"(atol {TOL[dn][0]}, rtol {TOL[dn][1]:.4g}) "
                       f"ms {row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s, call "
-                      f"{row['call_ms']:.4f}) plain {row['plain_ms']:.4f} library "
+                      f"{row['call_ms']:.4f}) parent {fmt(row['parent_ms'])} "
+                      f"plain {row['plain_ms']:.4f} library "
                       f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f}",
                       flush=True)
     record["kernel_a"] = a_rows
@@ -490,17 +552,39 @@ def plant_sm90_faults(torch, kb, x, wt, ref):
     planted = {"output x 1.01": kb.forward_kernel(x, wt, torch.bfloat16) * 1.01,
                "Cin slice 16-31 dropped": kb.forward_kernel(xs, wt,
                                                             torch.bfloat16)}
+    return planted_faults(planted, ref, "the wgmma kernel")
+
+
+def plant_dgrad_faults(torch, kb, g, wt, want):
+    """Two faults planted on the wgmma body's dgrad entry at the widest
+    training shape (dx Co 384, six Co tiles): dx x 1.01, and the last Co
+    tile left unwritten (zero), as a block that stopped its tile walk one
+    short would leave it. Each must fail the per-shape check against
+    ``want``, the plain dx; returns their max |diff|."""
+    dx = kb.dgrad_kernel(g, wt, torch.bfloat16)
+    tile = kb.co_tile(dx.shape[-1])
+    last = (dx.shape[-1] - 1) // tile * tile
+    unwritten = dx.clone()
+    unwritten[..., last:] = 0
+    return planted_faults({"dx x 1.01": dx * 1.01,
+                           "last Co tile unwritten": unwritten}, want,
+                          "the wgmma dgrad entry")
+
+
+def planted_faults(planted, want, where):
+    """Each planted output must fail check_close (float32 tolerance)
+    against ``want``; returns name -> max |diff|."""
     out = {}
     for name, y in planted.items():
         try:
-            check_close(f"planted {name}", y, ref, "float32")
+            check_close(f"planted {name}", y, want, "float32")
         except AssertionError:
-            out[name] = (y - ref).abs().max().item()
-            print(f"planted fault on the wgmma kernel, {name}: caught, "
-                  f"max|diff| {out[name]:.3e}", flush=True)
+            out[name] = (y - want).abs().max().item()
+            print(f"planted fault on {where}, {name}: caught, max|diff| "
+                  f"{out[name]:.3e}", flush=True)
             continue
-        raise AssertionError(f"planted fault {name} on the wgmma kernel "
-                             "passed the per-shape check")
+        raise AssertionError(f"planted fault {name} on {where} passed the "
+                             "per-shape check")
     return out
 
 
@@ -534,11 +618,12 @@ def plant_wgrad_faults(torch, kd, x, g, want):
     return out
 
 
-def phase_train_kernels(torch, ka, kb, kd, seed, record, parent_d):
+def phase_train_kernels(torch, ka, kb, kd, seed, record, parent):
     """Kernels C, B-dx and D against their plain versions at every shape of
     a training step (batch 4, float32 activations, bf16 conv operands), with
-    times. ``parent_d``: shape -> D's ms in the parent's run, printed beside
-    each D row."""
+    times; then B's forward at the training shapes of nf 32 and 16 (Co 32
+    and 16). ``parent``: the parent's rows by kernel, printed beside B-dx's
+    and D's."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
@@ -606,9 +691,12 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record, parent_d):
         dx = kb.dgrad_kernel(g, wt, cd)
         dk = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
         torch.cuda.synchronize()
-        err_dx = check_close(f"B-dx cin {cin}", dx,
-                             kb.conv3x3_dgrad_plain(g, wt, compute_dtype=cd),
-                             "float32")
+        want_dx = kb.conv3x3_dgrad_plain(g, wt, compute_dtype=cd)
+        err_dx = check_close(f"B-dx cin {cin}", dx, want_dx, "float32")
+        if cin == B_CINS[-1][0]:
+            record["dgrad_faults"] = plant_dgrad_faults(torch, kb, g, wt,
+                                                        want_dx)
+        del dx, want_dx
         want_d = kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd)
         err_d = check_share(f"D cin {cin}", dk, want_d)
         dk2 = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
@@ -647,21 +735,72 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record, parent_d):
             row["library_ms"], _ = cuda_ms(lib)
             row["tflops"] = flops / row["ms"] / 1e9
             rows.append(row)
-            parent = ""
-            if name == "D":
-                row["gbps"] = nbytes / row["ms"] / 1e6
-                row["parent_ms"] = parent_d.get(tuple(row["shape"]))
-                parent = f", {row['gbps']:.0f} GB/s) parent body " + (
-                    f"{row['parent_ms']:.4f}" if row["parent_ms"] is not None
-                    else "not given")
+            row["gbps"] = nbytes / row["ms"] / 1e6
+            row["parent_ms"] = parent[
+                "kernel_b_dx" if name == "B-dx" else "kernel_d"].get(
+                    tuple(row["shape"]))
             print(f"{name} cin {cin}: max|diff| {err:.3e} ms {row['ms']:.4f} "
-                  f"({row['tflops']:.1f} TFLOP/s{parent or ')'} plain "
+                  f"({row['tflops']:.1f} TFLOP/s, {row['gbps']:.0f} GB/s) "
+                  f"parent {fmt(row['parent_ms'])} plain "
                   f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} "
                   f"bound {row['bound_ms']:.4f} ({row['bound_by']})",
                   flush=True)
     record["kernel_c"], record["kernel_b_dx"], record["kernel_d"] = (
         c_rows, dx_rows, d_rows)
+    record["kernel_b_narrow"] = narrow_b_rows(torch, kb, gen)
     return c_rows, dx_rows, d_rows
+
+
+# B's forward at the training shapes of nf 32 and 16, (Cin, launches a
+# step): the wgmma body at Co 32 and 16.
+B_CINS_NARROW = {32: [(32, 5), (96, 1), (128, 1), (160, 1), (192, 1)],
+                 16: [(16, 5), (48, 1), (64, 1), (80, 1), (96, 1)]}
+
+
+def narrow_b_rows(torch, kb, gen):
+    """B's forward against its plain version at batch 4, 256x256, float32
+    activations, bf16 operands, Co 32 and 16 (UNet++ nf 32 and 16), with
+    times; the sum of each width's step is printed."""
+    cd = torch.bfloat16
+    rows = []
+    for co, cins in B_CINS_NARROW.items():
+        for cin, per_step in cins:
+            x = torch.randn((TRAIN_BATCH, FULL_RES, FULL_RES, cin),
+                            device="cuda", generator=gen)
+            wt = 0.05 * torch.randn((co, cin, 3, 3), device="cuda",
+                                    generator=gen)
+            y = kb.conv3x3(x, wt)
+            torch.cuda.synchronize()
+            err = check_close(f"B cin {cin} co {co}", y, kb.conv3x3_plain(
+                x, wt), "float32")
+            flops = 2 * x.numel() // cin * 9 * cin * co
+            nbytes = (x.numel() + y.numel()) * 4 + 9 * cin * co * 2
+            t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            row = {"shape": list(x.shape), "co": co, "dtype": "float32",
+                   "compute": "bfloat16", "per_step": per_step,
+                   "max_abs_err": err, "flops": flops,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "entry": kb.forward_entry(cin, co, cd)}
+            row["ms"], row["call_ms"] = cuda_ms(lambda: kb.conv3x3(x, wt))
+            row["plain_ms"], _ = cuda_ms(lambda: kb.conv3x3_plain(x, wt))
+            xl, wl = x.to(cd).permute(0, 3, 1, 2), wt.to(cd)
+            row["library_ms"], _ = cuda_ms(
+                lambda: torch.nn.functional.conv2d(xl, wl, padding=1))
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows.append(row)
+            print(f"B cin {cin} co {co} ({row['entry']}): max|diff| {err:.3e} "
+                  f"ms {row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) plain "
+                  f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} "
+                  f"bound {row['bound_ms']:.4f} ({row['bound_by']})",
+                  flush=True)
+        step = {k: sum(r[k] * r["per_step"] for r in rows if r["co"] == co)
+                for k in ("ms", "library_ms", "bound_ms")}
+        print(f"B forward a training step at nf {co} (Co {co}): "
+              f"{step['ms']:.4f} ms (cuDNN {step['library_ms']:.4f}, bound "
+              f"{step['bound_ms']:.4f})", flush=True)
+    return rows
 
 
 def write_pairs(root, split, pairs):
@@ -775,14 +914,15 @@ def phase_train(torch, ka, kb, kd, args, record):
 
 
 # UNet++ widths beside the default: row 0 on B's tail instantiation (8, 12,
-# 24; 12 also pads A, C and D) and on the library conv (128).
-NF_OTHER = (8, 12, 24, 128)
+# 24; 12 also pads A, C and D), on the wgmma body at Co 32 (32) and on the
+# library conv (128).
+NF_OTHER = (8, 12, 24, 32, 128)
 NF_SIZE, NF_BATCH = 64, 2
 
 
 def phase_nf(torch, ka, kb, kd, args, record):
-    """cli.train and cli.test at nf 8, 12, 24 and 128 on the card: one epoch
-    of two steps at 64x64, batch 2, with --debug_nans; the trained
+    """cli.train and cli.test at nf 8, 12, 24, 32 and 128 on the card: one
+    epoch of two steps at 64x64, batch 2, with --debug_nans; the trained
     generator's forward on the card against the CPU's. At nf <= 64 the
     launch counts are the default width's per step and per forward; at nf
     128 the row-0 convs take the library conv: no B, B-dx or D launch."""
@@ -1151,10 +1291,12 @@ def phase_serve(torch, ka, kb, args, record):
     return out
 
 
-def phase_probe(torch, ka, kb, kd, record):
+def phase_probe(torch, ka, kb, kd, record, parent):
     """The conv probe entry point at its defaults on cuda with the launch
     counters around it; then kernel E, through both names, against its
-    plain version at the probe's inputs, with times and bounds."""
+    plain version at the probe's inputs, with times and bounds (and the
+    parent's, from ``parent``); a fault planted on E must fail that
+    check."""
     from tactile_gan_torch.cli import probe_conv
 
     reset_counts(ka, kb, kd)
@@ -1195,16 +1337,50 @@ def phase_probe(torch, ka, kb, kd, record):
                    "ms": shape["ms"][label], "plain_ms": plain_ms,
                    "library_ms": shape["ms"]["library"],
                    "kernel_b_ms": shape["ms"]["B"],
-                   "tflops": shape["tflops"][label]}
+                   "tflops": shape["tflops"][label],
+                   "parent_ms": parent["probe"].get(
+                       (name, tuple(x.shape), co)),
+                   "parent_kernel_b_ms": parent["probe_b"].get(
+                       (tuple(x.shape), co))}
             rows[name].append(row)
             print(f"E {name} cin {cin} co {co}: max|diff| {err:.3e} ms "
-                  f"{row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) plain "
-                  f"{plain_ms:.4f} library {row['library_ms']:.4f} kernel B "
-                  f"{row['kernel_b_ms']:.4f} bound {row['bound_ms']:.4f} "
-                  f"({row['bound_by']})", flush=True)
+                  f"{row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s) parent "
+                  f"{fmt(row['parent_ms'])} plain {plain_ms:.4f} library "
+                  f"{row['library_ms']:.4f} kernel B {row['kernel_b_ms']:.4f} "
+                  f"(parent {fmt(row['parent_kernel_b_ms'])}) bound "
+                  f"{row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+        if "p1_faults" not in record:
+            record["p1_faults"] = planted_faults(
+                {"E x 1.01": kb.conv3x3_p1(x, k) * 1.01}, ref, "kernel E")
     out = {"launches": counts, "calls": res["calls"], "rows": rows,
            "batch": res["batch"], "size": res["size"]}
     record["probe_conv"] = out
+    return out
+
+
+def fmt(ms):
+    return "not given" if ms is None else f"{ms:.4f}"
+
+
+def load_baseline(path):
+    """The parent's rows from its --out JSON (a run of the parent commit's
+    chip_smoke.py in the same call), by kernel: shape keys -> ms. Empty
+    without a path."""
+    out = {k: {} for k in ("kernel_b", "kernel_b_dx", "kernel_d", "probe",
+                           "probe_b")}
+    if not path:
+        return out
+    with open(path) as f:
+        rec = json.load(f)
+    for r in rec["kernel_b"]:
+        out["kernel_b"][(tuple(r["shape"]), r["co"], r["dtype"],
+                         r["compute"])] = r["ms"]
+    for k in ("kernel_b_dx", "kernel_d"):
+        out[k] = {tuple(r["shape"]): r["ms"] for r in rec[k]}
+    for name, rows in rec["probe_conv"]["rows"].items():
+        for r in rows:
+            out["probe"][(name, tuple(r["shape"]), r["co"])] = r["ms"]
+            out["probe_b"][(tuple(r["shape"]), r["co"])] = r["kernel_b_ms"]
     return out
 
 
@@ -1230,14 +1406,10 @@ def main() -> int:
                                                   "chip_smoke.json"))
     ap.add_argument("--baseline", default=None,
                     help="the --out JSON of the parent commit's run in the "
-                         "same call: its kernel D times are printed beside "
-                         "this run's")
+                         "same call: its kernel B, B-dx, D and E times are "
+                         "printed beside this run's")
     args = ap.parse_args()
-    parent_d = {}
-    if args.baseline:
-        with open(args.baseline) as f:
-            parent_d = {tuple(r["shape"]): r["ms"]
-                        for r in json.load(f)["kernel_d"]}
+    parent = load_baseline(args.baseline)
 
     import torch
 
@@ -1265,8 +1437,16 @@ def main() -> int:
     record["ptxas"] = {name: build.ptxas_report(log)
                        for name, log in build.build_logs.items()}
     record["build_seconds"] = dict(build.build_seconds)
+    # ptxas injects a warpgroup wait where it cannot prove that an
+    # accumulator is not in use by an unfinished wgmma: each one serialises
+    # the products it follows.
+    record["ptxas_injected_waits"] = {
+        name: log.count("warpgroup.wait is injected")
+        for name, log in build.build_logs.items()}
     for name, report in record["ptxas"].items():
-        print(f"  {name}.cu: nvcc {build.build_seconds[name]:.1f} s")
+        print(f"  {name}.cu: nvcc {build.build_seconds[name]:.1f} s, "
+              f"{record['ptxas_injected_waits'][name]} warpgroup waits "
+              "injected by ptxas")
         for kernel, line in sorted(report.items()):
             print(f"  {name}: {kernel}: {line}")
 
@@ -1279,14 +1459,15 @@ def main() -> int:
 
     timed("edges", phase_edges, torch, ka, kb, kd, args.seed)
     a_rows, b_rows = timed("kernels_serving", phase_kernels, torch, ka, kb,
-                           args.seed, record)
+                           args.seed, record, parent)
     c_rows, dx_rows, d_rows = timed("kernels_training", phase_train_kernels,
                                     torch, ka, kb, kd, args.seed, record,
-                                    parent_d)
+                                    parent)
     train = timed("train", phase_train, torch, ka, kb, kd, args, record)
     serve = timed("serve", phase_serve, torch, ka, kb, args, record)
     timed("other_widths", phase_nf, torch, ka, kb, kd, args, record)
-    probe = timed("probe_conv", phase_probe, torch, ka, kb, kd, record)
+    probe = timed("probe_conv", phase_probe, torch, ka, kb, kd, record,
+                  parent)
     timed("step_card_vs_cpu", phase_step_card_vs_cpu, torch, ka, kb, args,
           record)
 
@@ -1318,7 +1499,7 @@ def main() -> int:
                      pallas + "conv3x3.py:394",
                      launches["conv3x3"], b_step, lambda r: r["per_forward"],
                      per + ", bf16 operands", card),
-        kernel_entry("conv3x3_dgrad", csrc + "conv3x3.cu",
+        kernel_entry("conv3x3_dgrad", csrc + "conv3x3_fwd_sm90.cu",
                      pallas + "conv3x3.py:394", launches["conv3x3_dgrad"],
                      dx_rows, lambda r: r["per_step"],
                      per + ", bf16 operands", card),
@@ -1332,28 +1513,30 @@ def main() -> int:
                  "three (Cin, Co) pairs, float32 in and out, bf16 operands")
     for name, line in (("conv3x3_p1", 160), ("conv3x3_p1_h", 289)):
         kernels.append(kernel_entry(
-            name, csrc + "conv3x3.cu", pallas + f"conv3x3.py:{line}",
+            name, csrc + "conv3x3_fwd_sm90.cu", pallas + f"conv3x3.py:{line}",
             launches[name], probe["rows"][name], lambda r: 1, probe_per,
             card))
     record["kernels"] = kernels
-    # B's forward a training step beside cuDNN and its bound, this run.
-    b_sum = {k: sum(r[k] * r["per_forward"] for r in b_step)
-             for k in ("ms", "library_ms", "bound_ms")}
-    record["kernel_b_step"] = b_sum
-    print(f"B forward a training step: {b_sum['ms']:.4f} ms (cuDNN "
-          f"{b_sum['library_ms']:.4f}, bound {b_sum['bound_ms']:.4f})",
-          flush=True)
-    # D a training step likewise, beside the parent's body where given.
-    d_sum = {k: sum(r[k] * r["per_step"] for r in d_rows)
-             for k in ("ms", "library_ms", "bound_ms")}
-    if all(r["parent_ms"] is not None for r in d_rows):
-        d_sum["parent_ms"] = sum(r["parent_ms"] * r["per_step"]
-                                 for r in d_rows)
-    record["kernel_d_step"] = d_sum
-    print(f"D a training step: {d_sum['ms']:.4f} ms (parent body "
-          f"{d_sum.get('parent_ms', float('nan')):.4f}, cuDNN "
-          f"{d_sum['library_ms']:.4f}, bound {d_sum['bound_ms']:.4f})",
-          flush=True)
+    # B, B-dx and D a training step and E a probe pass beside cuDNN, the
+    # bound and, where --baseline gives it, the parent's time.
+    for key, label, rows, weight in (
+            ("kernel_b_step", "B forward a training step", b_step,
+             lambda r: r["per_forward"]),
+            ("kernel_b_dx_step", "B-dx a training step", dx_rows,
+             lambda r: r["per_step"]),
+            ("kernel_d_step", "D a training step", d_rows,
+             lambda r: r["per_step"]),
+            ("kernel_e_pass", "E a probe pass (conv3x3_p1)",
+             probe["rows"]["conv3x3_p1"], lambda r: 1)):
+        total = {k: sum(r[k] * weight(r) for r in rows)
+                 for k in ("ms", "library_ms", "bound_ms")}
+        if all(r.get("parent_ms") is not None for r in rows):
+            total["parent_ms"] = sum(r["parent_ms"] * weight(r) for r in rows)
+        record[key] = total
+        print(f"{label}: {total['ms']:.4f} ms (parent "
+              f"{fmt(total.get('parent_ms'))}, cuDNN "
+              f"{total['library_ms']:.4f}, bound {total['bound_ms']:.4f})",
+              flush=True)
     record["main_path_launches"] = launches
     record["per_forward"] = {
         name: {f"batch{b}": {k: per_forward(rows, k, serving_rows(b))

@@ -1,67 +1,65 @@
 // 3x3 / stride 1 / zero-padding 1 convolution, NHWC in and out, for the
-// full-resolution row of UNet++ on Hopper (sm_90a). Replaces the Pallas
-// kernel tactile_gan_tpu/ops/pallas/conv3x3.py conv3x3_packed (_kernel_packed,
-// with _build_b): its packed (N, H*W/2, 2C) operand is NHWC memory, so here
-// it is a plain channels-last conv. The 12-tap B-matrix embedding existed to
-// fill the TPU's 128 MXU lanes and is not carried over.
+// full-resolution row of UNet++ on Hopper (sm_90a): the uses that the wgmma
+// body of conv3x3_fwd_sm90.cu does not take. That body runs every bf16-
+// operand conv at Cin % 8 == 0 (B's forward and B-dx at Co 16/32/64, kernel
+// E at any Co). This file runs the rest:
+//  * float32 compute of B's forward (conv3x3_forward), of B-dx
+//    (conv3x3_dgrad) and of kernel E (conv3x3_p1_forward), on the CUDA
+//    cores;
+//  * bf16 compute at the widths off that body (UNet++ at nf 8, 12, 24 for
+//    B and B-dx: Cin % 8 != 0 or Co not 16/32/64; kernel E at Cin % 8 !=
+//    0), on mma.sync tensor-core products (conv3x3_p1_forward).
+// All replace the Pallas kernel tactile_gan_tpu/ops/pallas/conv3x3.py
+// conv3x3_packed (_kernel_packed, with _build_b; its packed (N, H*W/2, 2C)
+// operand is NHWC memory, so here it is a plain channels-last conv) in its
+// two uses, the forward and the input gradient (the same conv with the
+// rotated-transposed weight, ops/packed_row.py _rot_t, whose output width is
+// the forward's Cin), and the Pallas probe kernels conv3x3_p1 (W-pairs) and
+// conv3x3_p1_h (H-pairs) of that file. W-pairing, H-pairing and the packed
+// row are three ways to fill the TPU's 128 MXU lanes with a conv of at most
+// 64 channels; all three compute one function, a channels-last 3x3/s1/p1
+// conv with operands rounded to the compute dtype and float32 sums, which
+// is what these bodies compute.
 //
-// Two uses, two entry points on one kernel body: the forward
-// (conv3x3_forward, Co 16/32/64) and the input gradient (conv3x3_dgrad): the
-// transpose of a zero-padded 3x3/s1 conv is the same conv with the
-// rotated-transposed weight (ops/packed_row.py _rot_t), whose output width
-// is the forward's Cin, up to 384 at UNet++ nf=64. The grid walks the output
-// channels in CO-wide tiles (blockIdx.z = image * tiles + tile); the weight
-// arrives padded to a whole number of tiles and stores past the true width
-// are skipped. The dgrad entry launches its own __global__ wrappers so a
-// profile tells the two uses apart.
+// The grid walks the output channels in CO-wide tiles (blockIdx.z = image *
+// tiles + tile); the weight arrives padded to a whole number of tiles and
+// stores past the true width are skipped. Each use launches its own
+// __global__ wrappers, so a profile tells them apart.
 //
-// Kernel E (conv3x3_p1_forward) is the same body again, for the Pallas probe
-// kernels conv3x3_p1 (W-pairs) and conv3x3_p1_h (H-pairs) of that file.
-// W-pairing, H-pairing and the packed row are three ways to fill the TPU's
-// 128 MXU lanes with a conv of at most 64 channels; all three compute one
-// function, a channels-last 3x3/s1/p1 conv with operands rounded to the
-// compute dtype and float32 sums, which is what this body computes. The
-// pairing (and its even W or H) has no counterpart here. E instantiates the
-// body with the template flag TAIL, which widens B's domain to the Pallas
-// functions': any Cin >= 1 (a Cin that is not a multiple of 8 is loaded
-// element by element through registers and zero-filled past Cin, since its
-// rows are not whole 16-byte chunks), any Co >= 1 (the weight zero-padded
-// to whole tiles, stores masked per channel, paired where Co allows) and a
-// float32 output whatever the input dtype. TAIL is a template parameter,
-// not a runtime branch, so B's instantiations compile as before; E has its
-// own __global__ names.
+// The tail (kernel E's entry, conv3x3_p1_forward) widens the domain to the
+// Pallas functions': any Cin >= 1 (a Cin that is not a multiple of 8 is
+// loaded element by element through registers and zero-filled past Cin,
+// since its rows are not whole 16-byte chunks), any Co >= 1 (stores masked
+// per channel, paired where Co allows) and a float32 output whatever the
+// input dtype (the wrapper casts it back to a bf16 input's dtype for B and
+// B-dx). The float32 body has the same tail as a template flag, TAIL, so
+// B's float32 instantiations compile without it.
 //
-// Bound: operations. At the serving shapes (256x256, Cin 64..384, Co 64) the
-// function does 2*9*Cin*64 flops per pixel against (Cin + 64) * itemsize
-// bytes, near or above the card's ~295 flop/byte ridge for bf16, so the
-// least time is about flops / 989 TFLOP/s (bf16 tensor cores) or / 67
-// TFLOP/s (float32 compute on the CUDA cores), or the bytes over 3.35 TB/s
-// where the input is float32 and Cin small.
+// Bound: operations for float32 compute (2*9*Cin*Co flops a pixel on the
+// CUDA cores at 67 TFLOP/s); for the bf16 tail the bytes (its widths are
+// small), the larger of bytes / 3.35 TB/s and flops / 989 TFLOP/s.
 //
 // Design (an implicit GEMM: M = output pixels, N = Co, K = 9 taps x Cin):
 //  * bf16 compute: a block of 8 warps computes an 8 x 32 tile of output
-//    pixels x all Co channels; each warp owns one output row of 32 pixels
-//    (two m16 tiles) x Co (Co/8 n8 tiles) in float32 registers and issues
+//    pixels x one Co tile; each warp owns one output row of 32 pixels
+//    (two m16 tiles) x CO (CO/8 n8 tiles) in float32 registers and issues
 //    mma.sync m16n8k16 bf16 products, its operands read from shared memory
 //    with ldmatrix.
 //  * Cin is walked in 16-channel slices through a two-stage ring in shared
 //    memory: while the tensor cores work on slice s, the 10 x 34 haloed
-//    input tile and the 9 x Co x 16 weight slice of slice s+1 are in flight
-//    (cp.async for bf16 data; float32 input is loaded into registers and
-//    rounded to bf16 on its way into shared memory). Zero padding is the
-//    zero fill of out-of-image halo pixels.
+//    input tile and the 9 x CO x 16 weight slice of slice s+1 are in flight
+//    (cp.async for bf16 data; float32 input, or a Cin off multiples of 8,
+//    is loaded into registers and rounded to bf16 on its way into shared
+//    memory). Zero padding is the zero fill of out-of-image halo pixels.
 //  * Each pixel's 16 channels (32 bytes) are two 16-byte chunks whose order
 //    is swapped on every other group of four pixels (and weight rows), so the
 //    eight rows of each ldmatrix phase fall in distinct banks.
-//  * float32 compute: the CUDA cores (one pixel x Co/2 channels per thread,
+//  * float32 compute: the CUDA cores (one pixel x CO/2 channels per thread,
 //    FMA in float32) over an 8 x 16 tile.
-//  * The output dtype follows the input dtype (float32 for E); accumulation
-//    is float32.
 //  * Weights arrive pre-laid by the wrapper: [9][Co][Cin_pad] bf16 (Cin_pad a
 //    multiple of 16, zero-filled) for bf16 compute, [9][Cin_pad][Co] float32
 //    (Cin_pad a multiple of 8) otherwise, Co zero-padded to whole tiles. B
-//    and B-dx need Cin and Co to be multiples of 8.
-// Left for later work: wgmma/TMA, a persistent grid, deeper pipelines.
+//    and B-dx in float32 need Cin and Co to be multiples of 8.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,24 +137,20 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// bf16 operands, float32 accumulation (tensor cores through mma.sync).
-// Dynamic shared memory: two stages of [halo pixels][16] + [9 * CO][16] bf16.
-// w is [9][co_rows][cin_pad] (co_rows = tiles * CO); y has co_total
-// channels. TAIL (kernel E): any Cin and co_total, float32 output.
-template <typename T, typename OUT, int CO, bool TAIL>
+// bf16 operands, float32 accumulation (tensor cores through mma.sync), the
+// tail: any Cin and co_total, float32 output. Dynamic shared memory: two
+// stages of [halo pixels][16] + [9 * CO][16] bf16. w is [9][co_rows][cin_pad]
+// (co_rows = tiles * CO); y has co_total channels.
+template <typename T, int CO>
 __device__ __forceinline__ void conv3x3_bf16_body(
     const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    OUT* __restrict__ y, int h, int wd, int cin, int cin_pad, int co_total,
+    float* __restrict__ y, int h, int wd, int cin, int cin_pad, int co_total,
     int co_tiles) {
   constexpr int kNT = CO / 8;                  // n8 tiles
   constexpr int kXElems = kHaloPix * kKC;
@@ -164,12 +158,11 @@ __device__ __forceinline__ void conv3x3_bf16_body(
   constexpr int kStage = kXElems + kWElems;
   constexpr int kWUnits = 9 * CO * 2;
   constexpr bool kF32In = sizeof(T) == 4;
-  static_assert(!TAIL || sizeof(OUT) == 4, "kernel E writes float32");
   extern __shared__ __align__(128) __nv_bfloat16 smem[];
-  // E with Cin not a multiple of 8: a pixel's channels are not whole
-  // 16-byte chunks, so every chunk is loaded element by element into
-  // registers (zero past Cin) and stored as bf16 like a float32 input.
-  const bool scalar = TAIL && cin % 8 != 0;
+  // Cin not a multiple of 8: a pixel's channels are not whole 16-byte
+  // chunks, so every chunk is loaded element by element into registers
+  // (zero past Cin) and stored as bf16 like a float32 input.
+  const bool scalar = cin % 8 != 0;
   const bool staged = kF32In || scalar;
 
   const int w0 = blockIdx.x * kMW, h0 = blockIdx.y * kMH;
@@ -196,7 +189,7 @@ __device__ __forceinline__ void conv3x3_bf16_body(
     }
   }
 
-  float4 xreg[kXPerThread][2];  // staged input in flight (float32 or E's)
+  float4 xreg[kXPerThread][2];  // staged input in flight
 
   auto issue_weights = [&](int s, __nv_bfloat16* ws) {
     const int c0 = s * kKC;
@@ -311,7 +304,7 @@ __device__ __forceinline__ void conv3x3_bf16_body(
   if (oh >= h) return;
   const int g = lane >> 2, cc = 2 * (lane & 3);
   const int co0 = tile * CO;
-  OUT* yrow = y + ((size_t)img * h + oh) * wd * co_total + co0;
+  float* yrow = y + ((size_t)img * h + oh) * wd * co_total + co0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -320,20 +313,16 @@ __device__ __forceinline__ void conv3x3_bf16_body(
       if (ow >= wd) continue;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-        OUT* p = yrow + (size_t)ow * co_total + j * 8 + cc;
+        float* p = yrow + (size_t)ow * co_total + j * 8 + cc;
         const float a = acc[i][j][2 * half], b = acc[i][j][2 * half + 1];
-        if constexpr (TAIL) {
-          // Pairs where co_total is even (8-byte aligned), else one channel
-          // at a time.
-          const int c = co0 + j * 8 + cc;
-          if (co_total % 2 == 0 && c < co_total) {
-            store2(p, a, b);
-          } else {
-            if (c < co_total) p[0] = a;
-            if (c + 1 < co_total) p[1] = b;
-          }
-        } else if (co0 + j * 8 < co_total) {  // co_total is a multiple of 8
+        // Pairs where co_total is even (8-byte aligned), else one channel
+        // at a time.
+        const int c = co0 + j * 8 + cc;
+        if (co_total % 2 == 0 && c < co_total) {
           store2(p, a, b);
+        } else {
+          if (c < co_total) p[0] = a;
+          if (c + 1 < co_total) p[1] = b;
         }
       }
     }
@@ -342,31 +331,12 @@ __device__ __forceinline__ void conv3x3_bf16_body(
 
 template <typename T, int CO>
 __global__ void __launch_bounds__(kThreads, 2)
-conv3x3_bf16_kernel(const T* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                    T* __restrict__ y, int h, int wd, int cin, int cin_pad,
-                    int co_total, int co_tiles) {
-  conv3x3_bf16_body<T, T, CO, false>(x, w, y, h, wd, cin, cin_pad, co_total,
-                                     co_tiles);
-}
-
-template <typename T, int CO>
-__global__ void __launch_bounds__(kThreads, 2)
-conv3x3_dgrad_bf16_kernel(const T* __restrict__ x,
-                          const __nv_bfloat16* __restrict__ w,
-                          T* __restrict__ y, int h, int wd, int cin,
-                          int cin_pad, int co_total, int co_tiles) {
-  conv3x3_bf16_body<T, T, CO, false>(x, w, y, h, wd, cin, cin_pad, co_total,
-                                     co_tiles);
-}
-
-template <typename T, int CO>
-__global__ void __launch_bounds__(kThreads, 2)
 conv3x3_p1_bf16_kernel(const T* __restrict__ x,
                        const __nv_bfloat16* __restrict__ w,
                        float* __restrict__ y, int h, int wd, int cin,
                        int cin_pad, int co_total, int co_tiles) {
-  conv3x3_bf16_body<T, float, CO, true>(x, w, y, h, wd, cin, cin_pad,
-                                        co_total, co_tiles);
+  conv3x3_bf16_body<T, CO>(x, w, y, h, wd, cin, cin_pad, co_total,
+                           co_tiles);
 }
 
 __device__ __forceinline__ void load4_f32(const float* p, float* v) {
@@ -503,57 +473,41 @@ conv3x3_p1_f32_kernel(const T* __restrict__ x, const float* __restrict__ w,
                                        co_total, co_tiles);
 }
 
-// One kernel instance's dynamic shared memory limit, raised once.
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, bool& configured) {
-  if (configured) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) configured = true;
-  return err;
-}
-
-// The three uses of the body: B's forward, B-dx, kernel E.
+// The three uses of the bodies: B's forward, B-dx, kernel E.
 enum Use { kForward = 0, kDgrad = 1, kP1 = 2 };
 
 template <typename T, int CO>
 int launch(const void* x, const void* w, void* y, int n, int h, int wd,
            int cin, int cin_pad, int co_total, int co_tiles, int compute_bf16,
            int use, cudaStream_t stream) {
-  if (compute_bf16) {
+  if (compute_bf16) {  // the tail (kernel E's entry only)
     constexpr int kBytes = 2 * (kHaloPix + 9 * CO) * kKC * 2;
-    static bool configured[3] = {false, false, false};
-    const dim3 grid((wd + kMW - 1) / kMW, (h + kMH - 1) / kMH, n * co_tiles);
-    if (use == kP1) {
-      const cudaError_t err = allow_smem(conv3x3_p1_bf16_kernel<T, CO>,
-                                         kBytes, configured[kP1]);
+    static bool configured = false;
+    if (!configured) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          conv3x3_p1_bf16_kernel<T, CO>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
       if (err != cudaSuccess) return (int)err;
-      conv3x3_p1_bf16_kernel<T, CO><<<grid, kThreads, kBytes, stream>>>(
-          static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(w),
-          static_cast<float*>(y), h, wd, cin, cin_pad, co_total, co_tiles);
-      return (int)cudaGetLastError();
+      configured = true;
     }
-    auto kernel = use == kDgrad ? conv3x3_dgrad_bf16_kernel<T, CO>
-                                : conv3x3_bf16_kernel<T, CO>;
-    const cudaError_t err = allow_smem(kernel, kBytes, configured[use]);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, kThreads, kBytes, stream>>>(
+    const dim3 grid((wd + kMW - 1) / kMW, (h + kMH - 1) / kMH, n * co_tiles);
+    conv3x3_p1_bf16_kernel<T, CO><<<grid, kThreads, kBytes, stream>>>(
         static_cast<const T*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<T*>(y), h, wd, cin, cin_pad, co_total, co_tiles);
-  } else {
-    const dim3 grid((wd + kTW - 1) / kTW, (h + kTH - 1) / kTH, n * co_tiles);
-    if (use == kP1) {
-      conv3x3_p1_f32_kernel<T, CO><<<grid, kThreads, 0, stream>>>(
-          static_cast<const T*>(x), static_cast<const float*>(w),
-          static_cast<float*>(y), h, wd, cin, cin_pad, co_total, co_tiles);
-      return (int)cudaGetLastError();
-    }
-    auto kernel = use == kDgrad ? conv3x3_dgrad_f32_kernel<T, CO>
-                                : conv3x3_f32_kernel<T, CO>;
-    kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const float*>(w),
-        static_cast<T*>(y), h, wd, cin, co_total, co_tiles);
+        static_cast<float*>(y), h, wd, cin, cin_pad, co_total, co_tiles);
+    return (int)cudaGetLastError();
   }
+  const dim3 grid((wd + kTW - 1) / kTW, (h + kTH - 1) / kTH, n * co_tiles);
+  if (use == kP1) {
+    conv3x3_p1_f32_kernel<T, CO><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(w),
+        static_cast<float*>(y), h, wd, cin, cin_pad, co_total, co_tiles);
+    return (int)cudaGetLastError();
+  }
+  auto kernel = use == kDgrad ? conv3x3_dgrad_f32_kernel<T, CO>
+                              : conv3x3_f32_kernel<T, CO>;
+  kernel<<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<T*>(y), h, wd, cin, co_total, co_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -592,31 +546,29 @@ int run(const void* x, const void* w, void* y, int n, int h, int wd, int cin,
 
 }  // namespace
 
-// x: (N, H, W, Cin) in_dtype (0 float32, 1 bfloat16); y: (N, H, W, Co) of the
-// same dtype. w: [9][Co][cin_pad] bfloat16 when compute_bf16 is 1 (cin_pad a
-// multiple of 16), else [9][Cin][Co] float32 (cin_pad == Cin). Co is 16, 32
-// or 64. Returns cudaGetLastError().
+// B's forward with float32 compute: x (N, H, W, Cin) in_dtype (0 float32,
+// 1 bfloat16) -> y (N, H, W, Co) of the same dtype; w: [9][Cin][Co] float32;
+// Cin a multiple of 8, Co 16, 32 or 64. Returns cudaGetLastError().
 extern "C" int conv3x3_forward(const void* x, const void* w, void* y, int n,
-                               int h, int wd, int cin, int cin_pad, int co,
-                               int in_dtype, int compute_bf16, void* stream) {
-  return run(x, w, y, n, h, wd, cin, cin_pad, co, co, in_dtype, compute_bf16,
-             kForward, stream);
+                               int h, int wd, int cin, int co, int in_dtype,
+                               void* stream) {
+  return run(x, w, y, n, h, wd, cin, cin, co, co, in_dtype, 0, kForward,
+             stream);
 }
 
-// The input gradient: g (N, H, W, Co_fwd) in_dtype -> dx (N, H, W, co_total)
-// of the same dtype, co_total = the forward's Cin (a multiple of 8). w is the
-// rotated-transposed weight laid out as for the forward with co_total padded
-// to a multiple of co_tile (16, 32 or 64): [9][co_rows][cin_pad] bfloat16 or
-// [9][Co_fwd][co_rows] float32. Returns cudaGetLastError().
+// B-dx with float32 compute: g (N, H, W, Co_fwd) in_dtype -> dx (N, H, W,
+// co_total) of the same dtype, co_total = the forward's Cin (a multiple of
+// 8). w is the rotated-transposed weight [9][Co_fwd][co_rows] float32,
+// co_rows = co_total padded to a multiple of co_tile (16, 32 or 64).
+// Returns cudaGetLastError().
 extern "C" int conv3x3_dgrad(const void* g, const void* w, void* dx, int n,
-                             int h, int wd, int cin, int cin_pad, int co_total,
-                             int co_tile, int in_dtype, int compute_bf16,
-                             void* stream) {
-  return run(g, w, dx, n, h, wd, cin, cin_pad, co_total, co_tile, in_dtype,
-             compute_bf16, kDgrad, stream);
+                             int h, int wd, int cin, int co_total, int co_tile,
+                             int in_dtype, void* stream) {
+  return run(g, w, dx, n, h, wd, cin, cin, co_total, co_tile, in_dtype, 0,
+             kDgrad, stream);
 }
 
-// Kernel E: x (N, H, W, Cin) in_dtype, any Cin >= 1 -> y (N, H, W, Co)
+// The tail: x (N, H, W, Cin) in_dtype, any Cin >= 1 -> y (N, H, W, Co)
 // float32, any Co >= 1. w: [9][co_rows][cin_pad] bfloat16 (cin_pad a
 // multiple of 16) when compute_bf16 is 1, else [9][cin_pad][co_rows] float32
 // (cin_pad a multiple of 8); co_rows = Co padded to a multiple of co_tile

@@ -9,7 +9,7 @@ module on a host without nvcc.
 
     python -m tactile_gan_torch.ops.kernels.build SRC.cu [SRC.cu ...]
 
-compiles each source with its flags into a temporary directory and prints
+compiles each source with the same flags into a temporary directory and prints
 ptxas's registers and spills for each kernel in it (to compare two versions
 of a source).
 """
@@ -33,14 +33,13 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# Every source builds with these flags. ptxas of CUDA 12.9 segfaults on the
+# wgmma sources when their fence.proxy.async (which they need: without it
+# the products read stale shared memory) is inlined, at -O3 and at -O1 too:
+# both keep the fence in a __noinline__ function, which builds at every
+# level with no spills, and -O3 ran faster than -O1.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Flags of one source beside NVCC_FLAGS. ptxas of CUDA 12.9 segfaults on the
-# wgmma kernel at -O3 and -O2: the trigger is its fence.proxy.async (either
-# form), which the kernel needs (without it the products read stale shared
-# memory). -O1 builds it with no spills. (conv3x3_wgrad_sm90.cu keeps the
-# fence in a __noinline__ function instead and builds at -O3.)
-SOURCE_FLAGS = {"conv3x3_fwd_sm90": ("-Xptxas", "-O1")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -59,14 +58,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def flags(name: str) -> tuple:
-    """nvcc's flags for csrc/<name>.cu."""
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
-
-
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -77,7 +71,7 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -123,12 +117,11 @@ def ptxas_report(log: str) -> Dict[str, str]:
 
 
 def compile_report(src: str) -> Dict[str, str]:
-    """ptxas's report for one source compiled with its flags (by file
-    name) into a temporary directory."""
+    """ptxas's report for one source compiled with NVCC_FLAGS into a
+    temporary directory."""
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run(
-            [_nvcc(), *flags(Path(src).stem), "-o", os.path.join(tmp, "k.so"),
-             src],
+            [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(tmp, "k.so"), src],
             capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")

@@ -7,18 +7,20 @@ Replaces the Pallas kernel ``tactile_gan_tpu/ops/pallas/conv3x3.py``
 ``conv3x3_packed`` (reached through ``ops/packed_row.py``), in both of its
 uses: the forward and dx, which is the same conv of the gradient with the
 rotated-transposed weight (``_rot_t``). Its packed operand is NHWC memory,
-so on the card it is a plain channels-last conv. The forward at Co 64 with
-bf16 operands (every row-0 conv of UNet++ nf=64, serving and training) runs
-the wgmma kernel of ``csrc/conv3x3_fwd_sm90.cu``; the forward at Co 16/32
-or float32 compute and dx run ``csrc/conv3x3.cu``. Bound on the card:
-operations (2*9*Cin*Co flops a pixel against (Cin+Co) elements moved) at
-the tensor cores' bf16 rate, or the bytes where the input is float32. Both
-are implicit GEMMs that stream 16-channel slices of a haloed input tile and
-of the weights through a two-stage shared-memory ring with float32
-accumulators: 4x64-pixel tiles on wgmma (Co 64, bf16), 8x32-pixel tiles on
-mma.sync (the rest of bf16 compute); float32 compute runs on the CUDA cores.
-The wrapper re-lays each weight once per entry (and again only after an
-in-place update of it) into the layout the kernel reads.
+so on the card it is a plain channels-last conv. Every conv with bf16
+operands at Cin % 8 == 0 runs the wgmma body of
+``csrc/conv3x3_fwd_sm90.cu``: B's forward at Co 16/32/64 (every row-0 conv
+of UNet++ at nf 16, 32 and 64, serving and training), B-dx (Co = the
+forward's Cin, walked in tiles of ``co_tile``) and kernel E (below).
+Float32 compute, and bf16 compute at other widths, run
+``csrc/conv3x3.cu``. Bound on the card: operations (2*9*Cin*Co flops a
+pixel against (Cin+Co) elements moved) at the tensor cores' bf16 rate, or
+the bytes where the input is float32. The wgmma body is an implicit GEMM
+that streams 16-channel slices of a haloed 4x64-pixel input tile and of the
+weights through shared memory with float32 accumulators, each block
+walking every output-channel tile of its pixels; float32 compute runs on
+the CUDA cores. The wrapper re-lays each weight once per use (and again
+only after an in-place update of it) into the layout the kernel reads.
 
 Numerics, kernel and plain version alike: operands rounded to
 ``compute_dtype`` (bfloat16 or float32), products and sums in float32, the
@@ -26,21 +28,21 @@ output in the input's dtype. B takes any Cin (the port convolves the
 concatenated node input, up to 384 channels at nf=64) and any Co up to 64,
 the convs the JAX package gives its packed kernel (2 Co <= 128 lanes). Cin
 a multiple of 8 with Co 16, 32 or 64 runs the entries above; any other
-widths (UNet++ at nf 8, 12 or 24) run the same body instantiated with
-kernel E's tail flag, which writes float32 (cast to a bfloat16 input's
-dtype after). The dx conv has Co = the forward's Cin, walked in
-output-channel tiles by one launch, and takes the tail instantiation on the
-same condition. On a CPU tensor the Function runs the plain versions; on a
-CUDA tensor it launches the kernels or raises. It is first-order only: a
-backward run while building a graph for a second derivative raises.
+widths (UNet++ at nf 8, 12 or 24) run ``conv3x3.cu``'s tail instantiation,
+which writes float32 (cast to a bfloat16 input's dtype after). The dx conv
+takes the tail on the same condition. On a CPU tensor the Function runs the
+plain versions; on a CUDA tensor it launches the kernels or raises. It is
+first-order only: a backward run while building a graph for a second
+derivative raises.
 
 Kernel E: ``conv3x3_p1`` and ``conv3x3_p1_h`` replace the Pallas functions
 of the same names (``ops/pallas/conv3x3.py``, W-pairs and H-pairs), whose
 only caller is the conv probe (``cli/probe_conv.py``). Both compute the
 function that B computes: the pairs were a way to fill the TPU's 128 MXU
-lanes, so both names launch one kernel, B's body instantiated with a tail
-flag that takes any Cin and Co >= 1 and any H, W >= 1 (the Pallas functions
-need an even W or H) and writes float32. They take NHWC x (float32 or
+lanes, so both names launch one kernel: the wgmma body with a float32
+output at bf16 compute and Cin % 8 == 0 (any Co >= 1), else the tail
+instantiation, which takes any Cin and Co >= 1. Both take any H, W >= 1
+(the Pallas functions need an even W or H). They take NHWC x (float32 or
 bfloat16) and an HWIO weight, as the Pallas functions do, and are forward
 only: an input that requires grad under grad mode raises.
 """
@@ -59,9 +61,9 @@ from tactile_gan_torch.ops.kernels.conv3x3_wgrad import conv3x3_wgrad
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _COMPUTE = (torch.bfloat16, torch.float32)
-_CO = (16, 32, 64)  # Co of the entries without the tail flag
+_CO = (16, 32, 64)  # Co of B's entries without the tail
 MAX_CO = 64
-_KC = 16  # Cin slice of the bf16 kernel (csrc kKC)
+_KC = 16  # Cin slice of the bf16 kernels (csrc kKC)
 _KCF = 8  # Cin slice of the float32 kernel (csrc kKCF)
 
 _lib: Optional[ctypes.CDLL] = None
@@ -73,9 +75,9 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("conv3x3")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_forward.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
+        lib.conv3x3_forward.argtypes = [p, p, p, i, i, i, i, i, i, p]
         lib.conv3x3_forward.restype = i
-        lib.conv3x3_dgrad.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+        lib.conv3x3_dgrad.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         lib.conv3x3_dgrad.restype = i
         lib.conv3x3_p1_forward.argtypes = [p, p, p, i, i, i, i, i, i, i, i,
                                            i, p]
@@ -91,8 +93,10 @@ def _load_sm90() -> ctypes.CDLL:
     if _lib_sm90 is None:
         lib = build.load("conv3x3_fwd_sm90")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.conv3x3_fwd_sm90.argtypes = [p, p, p, i, i, i, i, i, i, p]
-        lib.conv3x3_fwd_sm90.restype = i
+        for entry in _SM90_ENTRIES:
+            fn = getattr(lib, entry)
+            fn.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+            fn.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib_sm90 = lib
@@ -155,15 +159,18 @@ def relayout_weight(weight: torch.Tensor, compute_dtype: torch.dtype,
 
 
 def relayout_weight_sm90(weight: torch.Tensor) -> torch.Tensor:
-    """OIHW -> the layout the wgmma kernel reads: [Cin_pad / 16][9 taps]
-    [2 chunks][Co][8] bfloat16, Cin zero-padded to a multiple of 16. One
-    16-channel slice's weights are contiguous and are copied into shared
-    memory as they lie: per tap, two planes (channels 0-7 and 8-15 of the
-    slice) of Co rows of 8 channels."""
+    """OIHW -> the layout the wgmma kernel reads: [tiles * slices][9 taps]
+    [2 chunks][tile][8] bfloat16, tile = ``co_tile(Co)``, Cin zero-padded to
+    slices * 16 and Co to whole tiles. Step (co tile, 16-channel slice) =
+    tile * slices + slice is contiguous and is copied into shared memory as
+    it lies: per tap, two planes (channels 0-7 and 8-15 of the slice) of
+    ``tile`` rows of 8 channels."""
     co, cin = weight.shape[:2]
+    tile = co_tile(co)
     w = weight.permute(2, 3, 0, 1).reshape(9, co, cin)
-    w = F.pad(w, (0, (-cin) % _KC))
-    w = w.reshape(9, co, -1, 2, 8).permute(2, 0, 3, 1, 4)
+    w = F.pad(w, (0, (-cin) % _KC, 0, (-co) % tile))
+    w = w.reshape(9, -1, tile, w.shape[-1] // _KC, 2, 8)
+    w = w.permute(1, 3, 0, 4, 2, 5).reshape(-1, 9, 2, tile, 8)
     return w.to(torch.bfloat16).contiguous()
 
 
@@ -172,18 +179,20 @@ def hwio_to_oihw(k: torch.Tensor) -> torch.Tensor:
     return k.permute(3, 2, 0, 1)
 
 
-# How each use re-lays its weight: B's forward (OIHW; the wgmma entry's
-# own layout at Co 64 with bf16 compute; Co padded to its tile for the tail
-# instantiation), B-dx (the
-# rotated-transposed OIHW weight, Co = the forward's Cin walked in tiles) and
-# kernel E (HWIO, any Co, walked in tiles).
+# How each use re-lays its weight, for conv3x3.cu's entries (float32
+# compute, and the tail with Co padded to its tile) and for the wgmma
+# body's (the _sm90 uses): B's forward (OIHW), B-dx (the rotated-transposed
+# OIHW weight, Co = the forward's Cin walked in tiles) and kernel E (HWIO,
+# any Co, walked in tiles).
 _RELAYOUTS = {
     "forward": lambda w, cd: relayout_weight(w, cd),
     "forward_tail": lambda w, cd: relayout_weight(w, cd, co_tile(w.shape[0])),
     "forward_sm90": lambda w, cd: relayout_weight_sm90(w),
     "dgrad": lambda w, cd: relayout_weight(rot_t(w), cd, co_tile(w.shape[1])),
+    "dgrad_sm90": lambda w, cd: relayout_weight_sm90(rot_t(w)),
     "p1": lambda k, cd: relayout_weight(hwio_to_oihw(k), cd,
                                         co_tile(k.shape[3])),
+    "p1_sm90": lambda k, cd: relayout_weight_sm90(hwio_to_oihw(k)),
 }
 
 # The re-laid weights, kept while their source tensor lives, is not
@@ -207,24 +216,46 @@ def _kernel_weight(weight: torch.Tensor, compute_dtype: torch.dtype,
 
 SM90_ENTRY = "conv3x3_fwd_sm90"
 BODY_ENTRY = "conv3x3_forward"
+DGRAD_SM90_ENTRY = "conv3x3_dgrad_sm90"
+DGRAD_ENTRY = "conv3x3_dgrad"
+P1_SM90_ENTRY = "conv3x3_p1_sm90"
 TAIL_ENTRY = "conv3x3_p1_forward"
+# The wgmma body's entries (csrc/conv3x3_fwd_sm90.cu), one per use.
+_SM90_ENTRIES = (SM90_ENTRY, DGRAD_SM90_ENTRY, P1_SM90_ENTRY)
 
 
 def in_body(cin: int, co: int) -> bool:
-    """Whether a conv of these widths runs the entries without the tail
-    flag (``conv3x3_forward``, ``conv3x3_dgrad``, the wgmma kernel)."""
+    """Whether B's forward (and its dx) at these widths runs the entries
+    without the tail: the wgmma body for bf16 compute, ``conv3x3.cu``'s
+    float32 body otherwise."""
     return cin % 8 == 0 and co in _CO
 
 
 def forward_entry(cin: int, co: int, compute_dtype: torch.dtype) -> str:
-    """The CUDA entry that runs B's forward: the wgmma kernel at Co 64 with
-    bf16 operands (either input dtype), the body of ``csrc/conv3x3.cu`` at
-    the rest of its domain, and that body's tail instantiation elsewhere."""
+    """The CUDA entry that runs B's forward: the wgmma body at Co 16/32/64
+    with bf16 operands (either input dtype), the float32 body of
+    ``csrc/conv3x3.cu`` at the same widths, and that file's tail
+    instantiation elsewhere."""
     if not in_body(cin, co):
         return TAIL_ENTRY
-    if co == 64 and compute_dtype == torch.bfloat16:
-        return SM90_ENTRY
-    return BODY_ENTRY
+    return SM90_ENTRY if compute_dtype == torch.bfloat16 else BODY_ENTRY
+
+
+def dgrad_entry(cin: int, co: int, compute_dtype: torch.dtype) -> str:
+    """The CUDA entry that runs B-dx of a forward of these widths (its
+    output width is ``cin``, walked in tiles of ``co_tile(cin)``)."""
+    if not in_body(cin, co):
+        return TAIL_ENTRY
+    return (DGRAD_SM90_ENTRY if compute_dtype == torch.bfloat16
+            else DGRAD_ENTRY)
+
+
+def p1_entry(cin: int, compute_dtype: torch.dtype) -> str:
+    """The CUDA entry that runs kernel E (any Co): the wgmma body with a
+    float32 output at bf16 compute and Cin % 8 == 0, else the tail."""
+    if cin % 8 == 0 and compute_dtype == torch.bfloat16:
+        return P1_SM90_ENTRY
+    return TAIL_ENTRY
 
 
 def _check_aligned(t: torch.Tensor, what: str) -> None:
@@ -234,24 +265,43 @@ def _check_aligned(t: torch.Tensor, what: str) -> None:
                          f"{t.stride()}")
 
 
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.cuda_error_string(err).decode())
+
+
 def _tail_kernel(x: torch.Tensor, wk: torch.Tensor, co: int,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    """The body with the tail flag (kernel E's instantiation) on a CUDA
-    tensor: any Cin and Co, float32 out; ``wk`` is laid out by
-    ``relayout_weight`` with Co padded to ``co_tile(co)``. The caller counts
-    the launch."""
+    """``conv3x3.cu``'s tail on a CUDA tensor: any Cin and Co, float32 out;
+    ``wk`` is laid out by ``relayout_weight`` with Co padded to
+    ``co_tile(co)``. The caller counts the launch."""
     n, h, w, cin = x.shape
     bf16 = compute_dtype == torch.bfloat16
     y = torch.empty((n, h, w, co), dtype=torch.float32, device=x.device)
     lib = _load()
-    err = lib.conv3x3_p1_forward(
+    _raise_on(lib.conv3x3_p1_forward(
         x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin,
         wk.shape[-1] if bf16 else wk.shape[1], co, co_tile(co),
         _DTYPES[x.dtype], int(bf16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError("conv3x3 (tail) kernel launch failed: "
-                           + lib.cuda_error_string(err).decode())
+        torch.cuda.current_stream(x.device).cuda_stream), lib,
+        "conv3x3 (tail)")
+    return y
+
+
+def _sm90_kernel(entry: str, x: torch.Tensor, wk: torch.Tensor, co: int,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """One of the wgmma body's entries on a CUDA tensor: x (N,H,W,Cin) ->
+    (N,H,W,co) in ``out_dtype``; ``wk`` is laid out by
+    ``relayout_weight_sm90`` with tiles of ``co_tile(co)``. The caller
+    counts the launch."""
+    n, h, w, cin = x.shape
+    y = torch.empty((n, h, w, co), dtype=out_dtype, device=x.device)
+    lib = _load_sm90()
+    _raise_on(getattr(lib, entry)(
+        x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin, co,
+        co_tile(co), _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream), lib, entry)
     return y
 
 
@@ -276,34 +326,25 @@ def forward_kernel(x: torch.Tensor, weight: torch.Tensor,
     if entry == TAIL_ENTRY:
         wk = _kernel_weight(weight, compute_dtype, "forward_tail")
         y = _tail_kernel(x, wk, co, compute_dtype).to(x.dtype)
-        conv3x3.launches += 1
-        return y
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
-    if entry == SM90_ENTRY:
+    elif entry == SM90_ENTRY:
         wk = _kernel_weight(weight, compute_dtype, "forward_sm90")
-        lib = _load_sm90()
-        err = lib.conv3x3_fwd_sm90(
-            x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin,
-            wk.shape[0] * _KC, _DTYPES[x.dtype], stream)
+        y = _sm90_kernel(entry, x, wk, co, x.dtype)
     else:
-        bf16 = compute_dtype == torch.bfloat16
         wk = _kernel_weight(weight, compute_dtype)
+        y = torch.empty((n, h, w, co), dtype=x.dtype, device=x.device)
         lib = _load()
-        err = lib.conv3x3_forward(
-            x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin,
-            wk.shape[-1] if bf16 else cin, co, _DTYPES[x.dtype], int(bf16),
-            stream)
-    if err:
-        raise RuntimeError("conv3x3 kernel launch failed: "
-                           + lib.cuda_error_string(err).decode())
+        _raise_on(lib.conv3x3_forward(
+            x.data_ptr(), wk.data_ptr(), y.data_ptr(), n, h, w, cin, co,
+            _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream), lib, "conv3x3")
     conv3x3.launches += 1
     return y
 
 
 def dgrad_kernel(g: torch.Tensor, weight: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
-    """Kernel B's dx use on a CUDA tensor: g (N,H,W,Co) -> (N,H,W,Cin)."""
+    """Kernel B's dx use on a CUDA tensor: g (N,H,W,Co) -> (N,H,W,Cin),
+    through ``dgrad_entry``'s entry."""
     if g.device.type != "cuda":
         raise ValueError(f"conv3x3 dgrad: unsupported device {g.device}")
     co, cin = weight.shape[:2]
@@ -316,23 +357,24 @@ def dgrad_kernel(g: torch.Tensor, weight: torch.Tensor,
                          f"{tuple(g.shape)} on {g.device}")
     _check_aligned(g, "conv3x3 dgrad kernel")
     n, h, w, _ = g.shape
-    bf16 = compute_dtype == torch.bfloat16
-    # The rotated-transposed weight, its Co (the forward's Cin) padded to
-    # its tile: the layout of both the dgrad entry and the tail one.
-    wk = _kernel_weight(weight, compute_dtype, "dgrad")
-    if not in_body(cin, co):
-        dx = _tail_kernel(g, wk, cin, compute_dtype).to(g.dtype)
-        dgrad_kernel.launches += 1
-        return dx
-    dx = torch.empty((n, h, w, cin), dtype=g.dtype, device=g.device)
-    lib = _load()
-    err = lib.conv3x3_dgrad(
-        g.data_ptr(), wk.data_ptr(), dx.data_ptr(), n, h, w, co,
-        wk.shape[-1] if bf16 else co, cin, co_tile(cin), _DTYPES[g.dtype],
-        int(bf16), torch.cuda.current_stream(g.device).cuda_stream)
-    if err:
-        raise RuntimeError("conv3x3 dgrad kernel launch failed: "
-                           + lib.cuda_error_string(err).decode())
+    entry = dgrad_entry(cin, co, compute_dtype)
+    if entry == DGRAD_SM90_ENTRY:
+        wk = _kernel_weight(weight, compute_dtype, "dgrad_sm90")
+        dx = _sm90_kernel(entry, g, wk, cin, g.dtype)
+    else:
+        # The rotated-transposed weight, its Co (the forward's Cin) padded
+        # to its tile: the layout of both the float32 entry and the tail.
+        wk = _kernel_weight(weight, compute_dtype, "dgrad")
+        if entry == TAIL_ENTRY:
+            dx = _tail_kernel(g, wk, cin, compute_dtype).to(g.dtype)
+        else:
+            dx = torch.empty((n, h, w, cin), dtype=g.dtype, device=g.device)
+            lib = _load()
+            _raise_on(lib.conv3x3_dgrad(
+                g.data_ptr(), wk.data_ptr(), dx.data_ptr(), n, h, w, co, cin,
+                co_tile(cin), _DTYPES[g.dtype],
+                torch.cuda.current_stream(g.device).cuda_stream), lib,
+                "conv3x3 dgrad")
     dgrad_kernel.launches += 1
     return dx
 
@@ -424,10 +466,19 @@ def _check_p1(name: str, x: torch.Tensor, k: torch.Tensor,
 
 def _p1_kernel(x: torch.Tensor, k: torch.Tensor, compute_dtype: torch.dtype,
                counter) -> torch.Tensor:
-    """Kernel E on a CUDA tensor; ``counter.launches`` counts the launch."""
+    """Kernel E on a CUDA tensor, through ``p1_entry``'s entry;
+    ``counter.launches`` counts the launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"kernel E: unsupported device {x.device}")
     _check_aligned(x, "kernel E")
-    y = _tail_kernel(x, _kernel_weight(k, compute_dtype, "p1"), k.shape[3],
-                     compute_dtype)
+    co = k.shape[3]
+    if p1_entry(x.shape[3], compute_dtype) == P1_SM90_ENTRY:
+        y = _sm90_kernel(P1_SM90_ENTRY, x,
+                         _kernel_weight(k, compute_dtype, "p1_sm90"), co,
+                         torch.float32)
+    else:
+        y = _tail_kernel(x, _kernel_weight(k, compute_dtype, "p1"), co,
+                         compute_dtype)
     counter.launches += 1
     return y
 

@@ -42,12 +42,12 @@ OWN_FAMILIES = (
     ("kernel_a", ("stats_kernel", "finalize_kernel", "apply_kernel")),
     ("kernel_c", ("in_bwd_reduce_kernel", "in_bwd_finalize_kernel",
                   "in_bwd_dx_kernel")),
-    ("kernel_b", ("conv3x3_fwd_sm90_kernel", "conv3x3_bf16_kernel",
-                  "conv3x3_f32_kernel")),
-    ("kernel_b_dx", ("conv3x3_dgrad_bf16_kernel", "conv3x3_dgrad_f32_kernel")),
+    ("kernel_b", ("conv3x3_fwd_sm90_kernel", "conv3x3_f32_kernel")),
+    ("kernel_b_dx", ("conv3x3_dgrad_sm90_kernel", "conv3x3_dgrad_f32_kernel")),
     ("kernel_d", ("conv3x3_wgrad_sm90_kernel", "wgrad_f32_kernel",
                   "wgrad_reduce_kernel")),
-    # conv3x3.cu's body with the tail flag: kernel E, and B and B-dx at
+    ("kernel_e", ("conv3x3_p1_sm90_kernel",)),
+    # conv3x3.cu's tail: kernel E off the wgmma body, and B and B-dx at
     # widths off their own entries (UNet++ at nf 8, 12, 24).
     ("conv3x3_tail", ("conv3x3_p1_bf16_kernel", "conv3x3_p1_f32_kernel")),
 )

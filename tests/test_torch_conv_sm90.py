@@ -1,8 +1,10 @@
 """Host side of kernel B's forward entries: the wgmma kernel's
-(csrc/conv3x3_fwd_sm90.cu) weight layout, the wrapper's choice of entry
-(wgmma, mma.sync body, tail instantiation), the tail uses' weight layouts,
-and the plain version the wgmma kernel is held to on the card against the
-Pallas kernel it replaces (Mosaic interpreter on the CPU)."""
+(csrc/conv3x3_fwd_sm90.cu) weight layout, emulated in plain torch as the
+kernel reads it and held to the plain version at Co 16, 32 and 64; the
+wrapper's choice of entry (wgmma body, float32 body, tail instantiation),
+the tail uses' weight layouts, and the plain version the wgmma kernel is
+held to on the card against the Pallas kernel it replaces (Mosaic
+interpreter on the CPU)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -36,6 +38,49 @@ def test_sm90_relayout_holds_the_weights_of_the_mma_sync_layout(cin):
     assert not back[:, :, cin:].any()
 
 
+def emulate_sm90(x: torch.Tensor, wk: torch.Tensor, co: int) -> torch.Tensor:
+    """The wgmma body's sum in plain torch, read as the kernel reads ``wk``
+    ([tiles * slices][9][2][tile][8]): for each Co tile, each 16-channel
+    slice of x (bf16, zero past Cin and outside the image) and each tap, one
+    product of the shifted slice with the tile's [tile][16] weight rows
+    (chunk c holds channels 8c..8c+7), float32 sums; the channels past Co
+    are not stored. x (N,H,W,Cin) -> (N,H,W,co) float32."""
+    n, h, w, cin = x.shape
+    tile = wk.shape[3]
+    tiles = -(-co // tile)
+    slices = wk.shape[0] // tiles
+    assert wk.shape == (tiles * slices, 9, 2, tile, 8) and slices * 16 >= cin
+    xp = torch.zeros(n, h + 2, w + 2, slices * 16)
+    xp[:, 1:h + 1, 1:w + 1, :cin] = x.to(torch.bfloat16).float()
+    y = torch.zeros(n, h, w, tiles * tile)
+    for t in range(tiles):
+        for s in range(slices):
+            step = wk[t * slices + s].float()  # [9][2][tile][8]
+            for tap in range(9):
+                dh, dw = divmod(tap, 3)
+                b = step[tap].permute(1, 0, 2).reshape(tile, 16)
+                a = xp[:, dh:dh + h, dw:dw + w, 16 * s:16 * s + 16]
+                y[..., t * tile:(t + 1) * tile] += a @ b.T
+    return y[..., :co]
+
+
+@pytest.mark.parametrize("co", [16, 32, 64])
+@pytest.mark.parametrize("cin", [24, 72])
+def test_sm90_forward_layout_read_as_the_kernel_reads_it_is_the_conv(cin, co):
+    """B's forward on the wgmma body at each Co tile width: the layout of
+    ``forward_sm90`` read slice by slice, tap by tap, is the plain conv
+    (one tile, Cin 24 and 72 padded to whole slices)."""
+    rng = np.random.default_rng(cin + co)
+    x = torch.from_numpy(rng.normal(size=(2, 5, 7, cin)).astype(np.float32))
+    w = torch.from_numpy(
+        (0.1 * rng.normal(size=(co, cin, 3, 3))).astype(np.float32))
+    wk = kb._kernel_weight(w, torch.bfloat16, "forward_sm90")
+    assert wk.shape == (-(-cin // 16), 9, 2, co, 8)
+    # float32 sums of up to 9 * 80 products in another order.
+    torch.testing.assert_close(emulate_sm90(x, wk, co), kb.conv3x3_plain(x, w),
+                               atol=1e-4, rtol=1e-4)
+
+
 def test_sm90_relayout_is_kept_per_use():
     w = torch.nn.Parameter(torch.randn(64, 24, 3, 3))
     first = kb._kernel_weight(w, torch.bfloat16, "forward_sm90")
@@ -52,17 +97,17 @@ def test_sm90_relayout_is_kept_per_use():
     (64, 64, torch.bfloat16, kb.SM90_ENTRY),
     (384, 64, torch.bfloat16, kb.SM90_ENTRY),
     (64, 64, torch.float32, kb.BODY_ENTRY),
-    (64, 32, torch.bfloat16, kb.BODY_ENTRY),
-    (8, 16, torch.bfloat16, kb.BODY_ENTRY),
+    (64, 32, torch.bfloat16, kb.SM90_ENTRY),
+    (8, 16, torch.bfloat16, kb.SM90_ENTRY),
     (64, 8, torch.bfloat16, kb.TAIL_ENTRY),
     (72, 24, torch.bfloat16, kb.TAIL_ENTRY),
     (12, 64, torch.bfloat16, kb.TAIL_ENTRY),
     (36, 12, torch.float32, kb.TAIL_ENTRY)])
 def test_forward_entry_by_width_and_compute_dtype(cin, co, cd, want):
-    """Co 64 with bf16 operands goes to the wgmma kernel whatever the input
-    dtype; the rest of Cin % 8 == 0 with Co 16/32/64 stays on
+    """Cin % 8 == 0 with Co 16/32/64 and bf16 operands goes to the wgmma
+    kernel whatever the input dtype; float32 compute at those widths to
     csrc/conv3x3.cu's forward entry; other widths (UNet++ at nf 8, 12, 24)
-    take that body's tail instantiation."""
+    take that file's tail instantiation."""
     assert kb.forward_entry(cin, co, cd) == want
     assert kb.in_body(cin, co) is (want != kb.TAIL_ENTRY)
 
@@ -120,7 +165,7 @@ def test_plain_matches_pallas_packed_at_co_64(dtype):
 
 
 def test_profile_counts_the_wgmma_kernel_as_kernel_b():
-    name = ("void (anonymous namespace)::conv3x3_fwd_sm90_kernel<float>"
+    name = ("void (anonymous namespace)::conv3x3_fwd_sm90_kernel<float, 64>"
             "(const float *, ...)")
     assert profiling.kernel_family(name) == "kernel_b"
     tail = ("void (anonymous namespace)::conv3x3_p1_bf16_kernel<float, 16>"

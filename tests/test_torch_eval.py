@@ -343,7 +343,7 @@ def test_profile_breakdown_sorts_kernels_into_families():
     names = {"void (anonymous namespace)::stats_kernel<float>(...)": "kernel_a",
              "void (anonymous namespace)::apply_kernel<__nv_bfloat16>(...)":
                  "kernel_a",
-             "void (anonymous namespace)::conv3x3_bf16_kernel<float, 64>(...)":
+             "void (anonymous namespace)::conv3x3_fwd_sm90_kernel<float, 64>(...)":
                  "kernel_b",
              "sm90_xmma_fprop_implicit_gemm_bf16bf16": "library_conv",
              "void at::native::elementwise_kernel<128, 4>(...)": "other"}

@@ -546,9 +546,9 @@ def test_profile_families_tell_the_training_kernels_apart():
         "void (anonymous namespace)::in_bwd_finalize_kernel(...)": "kernel_c",
         "void (anonymous namespace)::in_bwd_dx_kernel<float>(...)": "kernel_c",
         "void (anonymous namespace)::finalize_kernel(...)": "kernel_a",
-        "void (anonymous namespace)::conv3x3_dgrad_bf16_kernel<float, 64>(...)":
+        "void (anonymous namespace)::conv3x3_dgrad_sm90_kernel<float, 64>(...)":
             "kernel_b_dx",
-        "void (anonymous namespace)::conv3x3_bf16_kernel<float, 64>(...)":
+        "void (anonymous namespace)::conv3x3_fwd_sm90_kernel<float, 64>(...)":
             "kernel_b",
         "void (anonymous namespace)::conv3x3_wgrad_sm90_kernel<float>(...)":
             "kernel_d",

@@ -4,6 +4,8 @@ in plain torch and held to the plain version and to the Pallas kernel it
 replaces (Mosaic interpreter on the CPU); the float32 body's plan; the
 wrapper's choice of entry; and the profile family of the new kernel."""
 
+import subprocess
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -150,8 +152,24 @@ def test_profile_counts_the_wgmma_wgrad_kernel_as_kernel_d():
         "void (anonymous namespace)::wgrad_reduce_kernel(...)") == "kernel_d"
 
 
-def test_wgmma_wgrad_builds_with_the_common_flags():
-    """Its proxy fence is out of line, so it needs no -O1 (the forward's
-    wgmma source does)."""
-    assert build.flags("conv3x3_wgrad_sm90") == build.NVCC_FLAGS
-    assert build.flags("conv3x3_fwd_sm90")[-2:] == ("-Xptxas", "-O1")
+def test_wgmma_wgrad_builds_with_the_common_flags(tmp_path, monkeypatch):
+    """Both wgmma sources keep their proxy fence out of line, so both build
+    with the common flags (no -Xptxas -O1): the nvcc command that build()
+    runs is NVCC_FLAGS, the output and the source."""
+    cmds = []
+
+    def fake_run(cmd, **kwargs):
+        cmds.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "run", fake_run)
+    for name in ("conv3x3_wgrad_sm90", "conv3x3_fwd_sm90"):
+        out = build.build(name)
+        assert out.parent == tmp_path and out.exists()
+        cmd = cmds[-1]
+        assert cmd[0] == "nvcc" and tuple(cmd[1:-3]) == build.NVCC_FLAGS
+        assert cmd[-3] == "-o" and cmd[-1] == str(build.CSRC / f"{name}.cu")
+    assert "-O1" not in build.NVCC_FLAGS
