@@ -12,7 +12,10 @@ Phases, each raising on failure (each prints its seconds):
   1. hold each kernel against its plain PyTorch version on the card at
      shapes off the main path (partial tiles, channel counts that are not a
      multiple of 64 or of 8, several output-channel tiles), in float32 and
-     bfloat16: A and B forward (B with bf16 operands at Cin % 8 == 0 and Co
+     bfloat16: A and C (at their slab plan's edges too: a share that
+     streams a part, several slabs, 1x1 images; a fault planted on A, its
+     streamed part left unwritten, must fail the check) and B forward (B
+     with bf16 operands at Cin % 8 == 0 and Co
      16/32/64 is the wgmma body of csrc/conv3x3_fwd_sm90.cu, also at W not a
      multiple of 64, H not a multiple of 4, Cin 8 to 72 and batch 3; B at Co
      off 16/32/64 or Cin off multiples of 8 is conv3x3.cu's tail), C
@@ -31,12 +34,14 @@ Phases, each raising on failure (each prints its seconds):
      call computing the same function (a yardstick only: the port never
      calls it), beside the least time the card could take (bytes /
      3.35 TB/s or flops / peak), and B's forward at the training shapes of
-     nf 32 and 16 (Co 32 and 16); two faults planted on the wgmma forward's
-     output, two on B-dx (x 1.01, one Co tile left unwritten) and three on
-     the wgmma weight gradient must fail the per-shape check; where
-     --baseline gives the parent's JSON from the same call, the rows of B,
-     B-dx and D (and E in phase 6) print the parent's time beside their
-     own;
+     nf 32 and 16 (Co 32 and 16); A and C at batch 4 and 256^2 give equal
+     bits on two runs; faults planted on A (one block's partial left out of
+     the merge), on C (the same, and its streamed part left unwritten), two
+     on the wgmma forward's output, two on B-dx (x 1.01, one Co tile left
+     unwritten) and three on the wgmma weight gradient must fail the
+     per-shape check; where --baseline gives the parent's JSON from the same
+     call, the rows of A, C, B, B-dx and D (and E in phase 6) print the
+     parent's time beside their own;
   3. train: synthetic chart pairs are written as data/train under a
      temporary work root and ``tactile_gan_torch.cli.train.main`` runs at
      its defaults (UNet++ nf=64, batch 4, 256x256, ls loss with label
@@ -78,7 +83,9 @@ Phases, each raising on failure (each prints its seconds):
      (the CPU step with perturbed weights) and three faults planted in the
      kernels.
 
-Prints the card (nvidia-smi name and power limit), one JSON line of kernel
+Then, not a gate, one call of kernel A and one of C are captured into a
+CUDA graph (torch.cuda.graph) and replayed; whether each captures is
+printed. Prints the card (nvidia-smi name and power limit), one JSON line of kernel
 numbers, and last {"ok": true, "device": {...}}. Details go to --out
 (perf_out/chip_smoke.json). Exits non-zero without a result when no CUDA
 device is available or the package is missing.
@@ -220,10 +227,16 @@ SUM_SHARE = 1e-4
 
 # Shapes off the serving path, for the kernels' edges: partial tiles, C and
 # Cin not a multiple of 16, Co below 64, every activation, no affine.
-# C 12 and 20: off multiples of 8, padded by the wrappers of A and C.
+# C 12 and 20: off multiples of 8, padded by the wrappers of A and C. For A
+# and C's slab plan: 512^2 x 64 streams a part of each block's share in both
+# directions and dtypes, batch 8 at 128^2 x 128 takes several slabs in both,
+# and a batch of 1x1 images.
 EDGE_A = [((3, 7, 5, 24), "leaky_relu", True), ((2, 9, 13, 136), None, False),
           ((1, 1, 1, 8), "relu", True), ((2, 9, 13, 12), "relu", True),
-          ((3, 5, 7, 20), "leaky_relu", False)]
+          ((3, 5, 7, 20), "leaky_relu", False),
+          ((1, 512, 512, 64), "relu", True),
+          ((8, 128, 128, 128), "leaky_relu", True),
+          ((5, 1, 1, 32), None, False)]
 # The last four take the tail instantiation for B and B-dx (Co off 16/32/64
 # or Cin off multiples of 8: UNet++ row 0 at nf 8, 12, 24) and D's padding.
 EDGE_B = [((2, 37, 53, 24), 32), ((1, 9, 17, 8), 16), ((1, 40, 70, 40), 64),
@@ -277,8 +290,62 @@ def check_share(name, got, want):
     return err
 
 
-def phase_edges(torch, ka, kb, kd, seed):
-    """Kernel vs plain version at shapes off the serving path."""
+def norm_plan(ka, shape, dtype, inputs):
+    """The slab plan kernel A (inputs 1) or C (2) takes at ``shape``."""
+    n, h, w, c = shape
+    return ka.launch_plan(n, h * w, c + (-c) % 8, dtype, inputs)
+
+
+def fmt_plan(plan):
+    return (f"{plan.ips} image(s) a slab, {plan.grid} blocks, share "
+            f"{plan.share} px, {plan.streamed} streamed, {plan.smem} B smem")
+
+
+def streamed_unwritten(y, plan):
+    """y with every block's streamed pixels zeroed: the output of a kernel
+    that skipped writing the part of its share it does not keep."""
+    out = y.clone()
+    flat = out.view(out.shape[0], -1, out.shape[-1])
+    hw = flat.shape[1]
+    for j in range(plan.bpi):
+        lo = j * plan.share + plan.resident
+        flat[:, lo:min(hw, (j + 1) * plan.share)] = 0
+    return out
+
+
+def partial_left_out(torch, ka, x, g, stats, s, o, act, plan):
+    """Kernel A's y (g None) or C's dx as a kernel would give them that
+    merged image 0's statistics without its first block's partial (its
+    first ``share`` pixels), dividing by H*W all the same."""
+    n, h, w, c = x.shape
+    x0 = x[0].float().reshape(h * w, c)
+    kept = torch.ones(h * w, dtype=torch.bool, device=x.device)
+    kept[:plan.share] = False
+    if g is None:
+        mean = x0[kept].mean(0)
+        var = (x0[kept] - mean).square().sum(0) / (h * w)
+        rstd = torch.rsqrt(var + ka.EPS)
+        y = ka._activate((x0 - mean) * rstd * s + o, act, 0.2)
+        out = ka.instance_norm_act_plain(x, s, o, act=act).clone()
+        out[0] = y.reshape(h, w, c).to(out.dtype)
+        return out
+    mean, rstd = stats[0, :, 0], stats[0, :, 1]
+    xh = (x0 - mean) * rstd
+    z = xh * s + o
+    g0 = g[0].float().reshape(h * w, c)
+    dz = torch.where(z > 0, g0, torch.zeros_like(g0)) if act == "relu" \
+        else g0
+    m1 = dz[kept].sum(0) * s / (h * w)
+    m2 = (dz * xh)[kept].sum(0) * s / (h * w)
+    out = ka.instance_norm_act_backward_plain(x, g, stats, s, o,
+                                              act=act)[0].clone()
+    out[0] = (rstd * (dz * s - m1 - xh * m2)).reshape(h, w, c).to(out.dtype)
+    return out
+
+
+def phase_edges(torch, ka, kb, kd, seed, record):
+    """Kernel vs plain version at shapes off the serving path; a fault
+    planted on A and on C where a share streams a part."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     for shape, act, affine in EDGE_A:
         c = shape[-1]
@@ -291,10 +358,16 @@ def phase_edges(torch, ka, kb, kd, seed):
                 o = 0.1 * torch.randn(c, device="cuda", generator=gen)
             y = ka.instance_norm_act(x, s, o, act=act)
             torch.cuda.synchronize()
-            err = check_close(f"A edge {shape} {dn} {act}", y,
-                              ka.instance_norm_act_plain(x, s, o, act=act), dn)
-            print(f"A edge {list(shape)} {dn} act={act} affine={affine}: "
-                  f"max|diff| {err:.3e}", flush=True)
+            want = ka.instance_norm_act_plain(x, s, o, act=act)
+            err = check_close(f"A edge {shape} {dn} {act}", y, want, dn)
+            plan = norm_plan(ka, shape, dt, 1)
+            if plan.streamed and dt == torch.float32 \
+                    and "norm_faults_a_streamed" not in record:
+                record["norm_faults_a_streamed"] = planted_faults(
+                    {"A streamed part unwritten": streamed_unwritten(
+                        y, plan)}, want, "kernel A")
+            print(f"A edge {list(shape)} {dn} act={act} affine={affine} "
+                  f"({fmt_plan(plan)}): max|diff| {err:.3e}", flush=True)
     for shape, co in EDGE_B:
         for in_dt, cd in ((torch.float32, torch.bfloat16),
                           (torch.bfloat16, torch.bfloat16),
@@ -378,8 +451,9 @@ def phase_edges(torch, ka, kb, kd, seed):
                               want[0], dn)
             for name, a, b in zip(("dscale", "doffset"), got[1:], want[1:]):
                 check_share(f"C edge {shape} {dn} {name}", a, b)
-            print(f"C edge {list(shape)} {dn} act={act} affine={affine}: "
-                  f"max|diff| {err:.3e}", flush=True)
+            print(f"C edge {list(shape)} {dn} act={act} affine={affine} "
+                  f"({fmt_plan(norm_plan(ka, shape, dt, 2))}): max|diff| "
+                  f"{err:.3e}", flush=True)
     # B-dx and D at B's edge shapes; the dx output width is the forward's
     # Cin (24, 8, 40: partial and several output-channel tiles), plus wide
     # odd Cin for D's channel tiles.
@@ -464,10 +538,23 @@ def phase_kernels(torch, ka, kb, seed, record, parent):
                 torch.cuda.synchronize()
                 ref = ka.instance_norm_act_plain(x, s, o, act="relu")
                 err = check_close(f"A {x.shape} {dn}", y, ref, dn)
+                plan = norm_plan(ka, x.shape, dt, 1)
+                if (batch, h, dn) == (TRAIN_BATCH, FULL_RES, "float32"):
+                    y2, st2 = ka.forward_kernel(x, s, o, "relu", 0.2)
+                    y3, st3 = ka.forward_kernel(x, s, o, "relu", 0.2)
+                    if not (torch.equal(y, y2) and torch.equal(y2, y3)
+                            and torch.equal(st2, st3)):
+                        raise AssertionError(f"A {x.shape}: two runs differ")
+                    print(f"A {list(x.shape)}: two runs equal", flush=True)
+                if (batch, h, dn) == (TRAIN_BATCH, 16, "float32"):
+                    record["norm_faults_a_partial"] = planted_faults(
+                        {"A block 0's partial left out": partial_left_out(
+                            torch, ka, x, None, None, s, o, "relu", plan)},
+                        ref, "kernel A")
                 nbytes = 2 * x.numel() * x.element_size()
                 row = {"shape": [batch, h, w, c], "dtype": dn,
                        "per_forward": per_fwd, "max_abs_err": err,
-                       "tol": TOL[dn],
+                       "tol": TOL[dn], "plan": plan._asdict(),
                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                        "bound_by": "bytes"}
                 row["ms"], row["call_ms"] = cuda_ms(
@@ -478,12 +565,17 @@ def phase_kernels(torch, ka, kb, seed, record, parent):
                 row["library_ms"], _ = cuda_ms(lambda: torch.relu(
                     torch.nn.functional.instance_norm(xl, weight=s, bias=o,
                                                       eps=ka.EPS)))
+                row["gbps"] = nbytes / row["ms"] / 1e6
+                row["parent_ms"] = parent["kernel_a"].get(
+                    (tuple(row["shape"]), dn))
                 a_rows.append(row)
                 print(f"A {row['shape']} {dn}: max|diff| {err:.3e} "
                       f"(atol {TOL[dn][0]}, rtol {TOL[dn][1]:.4g}) "
-                      f"ms {row['ms']:.4f} (call {row['call_ms']:.4f}) plain "
-                      f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} "
-                      f"bound {row['bound_ms']:.4f}", flush=True)
+                      f"ms {row['ms']:.4f} ({row['gbps']:.0f} GB/s, call "
+                      f"{row['call_ms']:.4f}) parent {fmt(row['parent_ms'])} "
+                      f"plain {row['plain_ms']:.4f} library "
+                      f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+                      f"({fmt_plan(plan)})", flush=True)
         # Kernel B: (input dtype, compute dtype); the serving path runs the
         # first (float32 activations, bf16 operands).
         combos = [(torch.float32, torch.bfloat16),
@@ -628,23 +720,42 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record, parent):
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     dev = "cuda"
-    c_rows, dx_rows, d_rows = [], [], []
-    for (h, w, c), per_step in A_SHAPES:
+    c_rows, c_bf16_rows, dx_rows, d_rows = [], [], [], []
+    for ((h, w, c), per_step), dt in [(r, dt) for dt in (torch.float32,
+                                                         torch.bfloat16)
+                                      for r in A_SHAPES]:
+        dn = str(dt).split(".")[1]
         shape = (TRAIN_BATCH, h, w, c)
-        x = torch.randn(shape, device=dev, generator=gen) * 2 + 0.5
-        g = torch.randn(shape, device=dev, generator=gen)
+        x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dt)
+        g = torch.randn(shape, device=dev, generator=gen).to(dt)
         s = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
         o = 0.1 * torch.randn(c, device=dev, generator=gen)
         _, st = ka.forward_kernel(x, s, o, "relu", 0.2)
         got = ka.backward_kernel(x, g, st, s, o, "relu", 0.2)
         torch.cuda.synchronize()
         want = ka.instance_norm_act_backward_plain(x, g, st, s, o, act="relu")
-        err = check_close(f"C {shape}", got[0], want[0], "float32")
+        err = check_close(f"C {shape} {dn}", got[0], want[0], dn)
         for name, a, b in zip(("dscale", "doffset"), got[1:], want[1:]):
-            check_share(f"C {shape} {name}", a, b)
+            check_share(f"C {shape} {dn} {name}", a, b)
+        plan = norm_plan(ka, shape, dt, 2)
+        if dn == "float32" and h == FULL_RES:
+            again = ka.backward_kernel(x, g, st, s, o, "relu", 0.2)
+            if not all(torch.equal(u, v) for u, v in zip(got, again)):
+                raise AssertionError(f"C {shape}: two runs differ")
+            print(f"C {list(shape)}: two runs equal", flush=True)
+            record["norm_faults_c_streamed"] = planted_faults(
+                {"C streamed part unwritten": streamed_unwritten(got[0],
+                                                                 plan)},
+                want[0], "kernel C")
+        if dn == "float32" and h == 16:
+            record["norm_faults_c_partial"] = planted_faults(
+                {"C block 0's partial left out": partial_left_out(
+                    torch, ka, x, g, st, s, o, "relu", plan)},
+                want[0], "kernel C")
         nbytes = 3 * x.numel() * x.element_size()
-        row = {"shape": list(shape), "dtype": "float32",
-               "per_step": per_step, "max_abs_err": err, "tol": TOL["float32"],
+        row = {"shape": list(shape), "dtype": dn,
+               "per_step": per_step, "max_abs_err": err, "tol": TOL[dn],
+               "plan": plan._asdict(),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
         row["ms"], row["call_ms"] = cuda_ms(
             lambda: ka.backward_kernel(x, g, st, s, o, "relu", 0.2))
@@ -660,10 +771,15 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record, parent):
         row["library_ms"], _ = cuda_ms(lambda: torch.autograd.grad(
             yl, (xl, sl, ol), gl, retain_graph=True))
         del yl
-        c_rows.append(row)
-        print(f"C {row['shape']}: max|diff| {err:.3e} ms {row['ms']:.4f} "
-              f"plain {row['plain_ms']:.4f} library {row['library_ms']:.4f} "
-              f"bound {row['bound_ms']:.4f}", flush=True)
+        row["gbps"] = nbytes / row["ms"] / 1e6
+        row["parent_ms"] = (parent["kernel_c"].get(tuple(row["shape"]))
+                            if dn == "float32" else None)
+        (c_rows if dn == "float32" else c_bf16_rows).append(row)
+        print(f"C {row['shape']} {dn}: max|diff| {err:.3e} ms "
+              f"{row['ms']:.4f} ({row['gbps']:.0f} GB/s) parent "
+              f"{fmt(row['parent_ms'])} plain {row['plain_ms']:.4f} library "
+              f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+              f"({fmt_plan(plan)})", flush=True)
 
     for cin, per_step in B_CINS:
         pix = TRAIN_BATCH * FULL_RES * FULL_RES
@@ -747,6 +863,7 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record, parent):
                   flush=True)
     record["kernel_c"], record["kernel_b_dx"], record["kernel_d"] = (
         c_rows, dx_rows, d_rows)
+    record["kernel_c_bf16"] = c_bf16_rows
     record["kernel_b_narrow"] = narrow_b_rows(torch, kb, gen)
     return c_rows, dx_rows, d_rows
 
@@ -1366,12 +1483,16 @@ def load_baseline(path):
     """The parent's rows from its --out JSON (a run of the parent commit's
     chip_smoke.py in the same call), by kernel: shape keys -> ms. Empty
     without a path."""
-    out = {k: {} for k in ("kernel_b", "kernel_b_dx", "kernel_d", "probe",
-                           "probe_b")}
+    out = {k: {} for k in ("kernel_a", "kernel_c", "kernel_b", "kernel_b_dx",
+                           "kernel_d", "probe", "probe_b")}
     if not path:
         return out
     with open(path) as f:
         rec = json.load(f)
+    out["kernel_a"] = {(tuple(r["shape"]), r["dtype"]): r["ms"]
+                       for r in rec["kernel_a"]}
+    out["kernel_c"] = {tuple(r["shape"]): r["ms"] for r in rec["kernel_c"]
+                       if r.get("dtype", "float32") == "float32"}
     for r in rec["kernel_b"]:
         out["kernel_b"][(tuple(r["shape"]), r["co"], r["dtype"],
                          r["compute"])] = r["ms"]
@@ -1381,6 +1502,43 @@ def load_baseline(path):
         for r in rows:
             out["probe"][(name, tuple(r["shape"]), r["co"])] = r["ms"]
             out["probe_b"][(tuple(r["shape"]), r["co"])] = r["kernel_b_ms"]
+    return out
+
+
+def graph_capture(torch, ka):
+    """Whether one call of kernel A and one of C (cooperative launches)
+    capture into a CUDA graph and replay to the eager result, bit for bit,
+    at batch 4, 256x256x64: name -> what happened. Not a gate."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shape = (TRAIN_BATCH, FULL_RES, FULL_RES, 64)
+    x = torch.randn(shape, device="cuda", generator=gen)
+    g = torch.randn(shape, device="cuda", generator=gen)
+    s = 1 + 0.1 * torch.randn(64, device="cuda", generator=gen)
+    o = 0.1 * torch.randn(64, device="cuda", generator=gen)
+    y_ref, st = ka.forward_kernel(x, s, o, "relu", 0.2)
+    calls = {"A": (lambda: ka.forward_kernel(x, s, o, "relu", 0.2)[0], y_ref),
+             "C": (lambda: ka.backward_kernel(x, g, st, s, o, "relu", 0.2)[0],
+                   ka.backward_kernel(x, g, st, s, o, "relu", 0.2)[0])}
+    out = {}
+    for name, (fn, ref) in calls.items():
+        try:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):  # warm up off the default stream
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                y = fn()
+            graph.replay()
+            torch.cuda.synchronize()
+            out[name] = ("captures; the replay equals the eager call"
+                         if torch.equal(y, ref) else
+                         "captures; the replay differs from the eager call")
+        except Exception as e:  # noqa: BLE001 -- reported, not a gate
+            out[name] = (f"does not capture: {type(e).__name__}: "
+                         f"{str(e).strip().splitlines()[0][:200]}")
+        print(f"CUDA graph capture of kernel {name}: {out[name]}", flush=True)
     return out
 
 
@@ -1406,8 +1564,8 @@ def main() -> int:
                                                   "chip_smoke.json"))
     ap.add_argument("--baseline", default=None,
                     help="the --out JSON of the parent commit's run in the "
-                         "same call: its kernel B, B-dx, D and E times are "
-                         "printed beside this run's")
+                         "same call: its kernel A, C, B, B-dx, D and E times "
+                         "are printed beside this run's")
     args = ap.parse_args()
     parent = load_baseline(args.baseline)
 
@@ -1457,7 +1615,7 @@ def main() -> int:
         print(f"phase {name}: {record['phase_s'][name]:.1f} s", flush=True)
         return res
 
-    timed("edges", phase_edges, torch, ka, kb, kd, args.seed)
+    timed("edges", phase_edges, torch, ka, kb, kd, args.seed, record)
     a_rows, b_rows = timed("kernels_serving", phase_kernels, torch, ka, kb,
                            args.seed, record, parent)
     c_rows, dx_rows, d_rows = timed("kernels_training", phase_train_kernels,
@@ -1520,6 +1678,10 @@ def main() -> int:
     # B, B-dx and D a training step and E a probe pass beside cuDNN, the
     # bound and, where --baseline gives it, the parent's time.
     for key, label, rows, weight in (
+            ("kernel_a_step", "A a training step", a_step,
+             lambda r: r["per_forward"]),
+            ("kernel_c_step", "C a training step", c_rows,
+             lambda r: r["per_step"]),
             ("kernel_b_step", "B forward a training step", b_step,
              lambda r: r["per_forward"]),
             ("kernel_b_dx_step", "B-dx a training step", dx_rows,
@@ -1534,10 +1696,11 @@ def main() -> int:
             total["parent_ms"] = sum(r["parent_ms"] * weight(r) for r in rows)
         record[key] = total
         print(f"{label}: {total['ms']:.4f} ms (parent "
-              f"{fmt(total.get('parent_ms'))}, cuDNN "
+              f"{fmt(total.get('parent_ms'))}, library "
               f"{total['library_ms']:.4f}, bound {total['bound_ms']:.4f})",
               flush=True)
     record["main_path_launches"] = launches
+    record["graph_capture"] = graph_capture(torch, ka)
     record["per_forward"] = {
         name: {f"batch{b}": {k: per_forward(rows, k, serving_rows(b))
                              for k in ("ms", "plain_ms", "bound_ms",

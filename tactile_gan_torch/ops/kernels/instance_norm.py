@@ -6,10 +6,11 @@ Kernel A (forward) replaces the Pallas kernel
 (``_norm_call`` -> ``_kernel``); kernel C (backward) replaces its ``_bwd``
 (``_bwd_call`` -> ``_bwd_kernel``). Both live in
 ``csrc/instance_norm_act.cu``. Bound on the card: memory. A reads x once and
-writes y once; C reads x and g once and writes dx once. Both split the H*W
-reduction across blocks so the full-resolution row (64 channels of 65,536
-pixels per image) still fills the 132 SMs, merge the partials in a finalize
-launch, then run an elementwise pass.
+writes y once; C reads x and g once and writes dx once. Each is one
+persistent, cooperative launch that walks the call's images in slabs of
+whole images, keeps each block's share of a slab in shared memory between
+the statistics and the output (so x, and g, are read once), and merges the
+blocks' partials across two grid barriers. ``launch_plan`` sizes the slabs.
 
 Both take any C. The kernels read channels in groups of 8: where C is not a
 multiple of 8 (UNet++ at nf 12) the wrapper zero-pads x (and g) to one, with
@@ -32,7 +33,7 @@ second derivative raises, as the Pallas op does.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,11 +43,9 @@ from tactile_gan_torch.ops.norm import instance_norm
 EPS = 1e-5
 _ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_TILE_C = 64               # channels per statistics block (csrc kTileC)
-_THREADS = 256
-_TARGET_STATS_BLOCKS = 4 * 132   # about four blocks per SM
-_MIN_CHUNK = 128                 # pixels per statistics block, at least
-_MAX_APPLY_BLOCKS = 8 * 132
+_THREADS = 512           # one block an SM (csrc kThreads)
+SMEM_MAX = 232448       # 227 KB: a block's dynamic shared memory at most
+H100_SMS = 132
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -56,11 +55,11 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load("instance_norm_act")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.in_act_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                       i, f, f, i, p]
+        lib.in_act_forward.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                       i, i, i, i, f, f, p]
         lib.in_act_forward.restype = i
-        lib.in_act_backward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                        i, i, i, i, f, i, p]
+        lib.in_act_backward.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                        i, i, i, i, i, i, f, p]
         lib.in_act_backward.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
@@ -141,16 +140,57 @@ def instance_norm_act_backward_plain(
     return dx.to(g.dtype), dscale, doffset
 
 
-def launch_plan(n: int, hw: int, c: int):
-    """(splits, chunk, apply_blocks): the H*W split of the reduction grid
-    and the elementwise grid, from the shape alone (kernels A and C)."""
-    tiles = n * -(-c // _TILE_C)
-    splits = max(1, min(-(-_TARGET_STATS_BLOCKS // tiles), -(-hw // _MIN_CHUNK)))
-    chunk = -(-hw // splits)
-    splits = -(-hw // chunk)
-    apply_blocks = max(1, min(-(-(n * hw * c // 8) // _THREADS),
-                              _MAX_APPLY_BLOCKS))
-    return splits, chunk, apply_blocks
+class SlabPlan(NamedTuple):
+    """How one call of kernel A or C walks its images (csrc ``Plan``)."""
+    ips: int        # images a slab (every slab whole images)
+    bpi: int        # blocks an image
+    share: int      # pixels a block (the last block of an image may get fewer)
+    resident: int   # of those, pixels kept in shared memory
+    streamed: int   # the rest, read again from device memory to write
+    lanes: int      # pixel lanes of a block (threads per channel group)
+    grid: int       # blocks: ips * bpi, at most one an SM
+    smem: int       # dynamic shared-memory bytes a block
+
+
+def launch_plan(n: int, hw: int, c: int, dtype: torch.dtype, inputs: int,
+                sms: int = H100_SMS) -> SlabPlan:
+    """The slab plan of kernel A (``inputs`` 1: x) or C (2: x and g) on
+    ``n`` images of ``hw`` pixels and ``c`` channels (c % 8 == 0), from the
+    shape alone.
+
+    A block's threads take 16 bytes of a pixel each (4 float32 or 8 bf16
+    channels); their per-thread partials need (2 * vec + 1) floats each in
+    shared memory, and the rest holds the block's share. A slab takes as
+    many images as stay resident with the grid spread over them, evened
+    over the slabs; where one image's share does not fit, a slab is one
+    image and each block streams what does not fit."""
+    itemsize = dtype.itemsize
+    vec = 16 // itemsize
+    red = _THREADS * (2 * vec + 1) * 4
+    pixel_bytes = c * itemsize * inputs
+    budget = SMEM_MAX - red
+
+    def blocks_per_image(ips: int) -> int:
+        return max(1, min(sms // ips, hw))
+
+    ips = 1
+    for k in range(min(n, sms), 0, -1):
+        if -(-hw // blocks_per_image(k)) * pixel_bytes <= budget:
+            ips = k
+            break
+    ips = -(-n // -(-n // ips))  # the same number of slabs, evened out
+    share = -(-hw // blocks_per_image(ips))
+    bpi = -(-hw // share)  # no block left without pixels
+    resident = min(share, budget // pixel_bytes)
+    groups = c // vec
+    return SlabPlan(ips=ips, bpi=bpi, share=share, resident=resident,
+                    streamed=share - resident,
+                    lanes=_THREADS // min(groups, _THREADS), grid=ips * bpi,
+                    smem=red + resident * pixel_bytes)
+
+
+def _sms(x: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def _affine(v: Optional[torch.Tensor], c: int, fill: float,
@@ -206,18 +246,18 @@ def forward_kernel(x: torch.Tensor, weight: Optional[torch.Tensor],
     wt = _affine(weight, c, 1.0, x)
     bs = _affine(bias, c, 0.0, x)
     hw = h * w
-    splits, chunk, apply_blocks = launch_plan(n, hw, c)
+    plan = launch_plan(n, hw, c, x.dtype, 1, _sms(x))
     y = torch.empty_like(x)
-    part = n * splits * c
-    scratch = torch.empty(2 * part, dtype=torch.float32, device=x.device)
+    # float32 scratch: each block's (mean, M2) of each channel.
+    part = torch.empty(2 * n * plan.bpi * c, dtype=torch.float32,
+                       device=x.device)
     stats = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
-    base = scratch.data_ptr()
     lib = _load()
     err = lib.in_act_forward(
         x.data_ptr(), y.data_ptr(), wt.data_ptr(), bs.data_ptr(),
-        base, base + 4 * part, stats.data_ptr(), n, hw, c, splits,
-        chunk, _DTYPES[x.dtype], _ACTS[act], negative_slope, EPS,
-        apply_blocks, torch.cuda.current_stream(x.device).cuda_stream)
+        part.data_ptr(), stats.data_ptr(), n, hw, c, plan.ips, plan.bpi,
+        plan.share, plan.resident, plan.smem, _DTYPES[x.dtype], _ACTS[act],
+        negative_slope, EPS, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(lib, err, "instance_norm_act")
     instance_norm_act.launches += 1
     return y, stats
@@ -252,21 +292,19 @@ def backward_kernel(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
     wt = _affine(weight, c, 1.0, x)
     bs = _affine(bias, c, 0.0, x)
     hw = h * w
-    splits, chunk, apply_blocks = launch_plan(n, hw, c)
+    plan = launch_plan(n, hw, c, x.dtype, 2, _sms(x))
     dx = torch.empty_like(g)
-    part = n * splits * c
-    # float32 scratch: partial sums of dz and dz*xhat, the per-(n, c)
-    # (m1, m2) of the dx pass; dso holds per-(n, c) dscale and doffset.
-    scratch = torch.empty(2 * part + 2 * n * c, dtype=torch.float32,
-                          device=x.device)
+    # float32 scratch: each block's sums of dz and dz*xhat of each channel;
+    # dso receives per-(n, c) dscale and doffset.
+    part = torch.empty(2 * n * plan.bpi * c, dtype=torch.float32,
+                       device=x.device)
     dso = torch.empty((2, n, c), dtype=torch.float32, device=x.device)
-    base = scratch.data_ptr()
     lib = _load()
     err = lib.in_act_backward(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), stats.data_ptr(),
-        wt.data_ptr(), bs.data_ptr(), base, base + 4 * part,
-        base + 8 * part, dso.data_ptr(), n, hw, c, splits, chunk,
-        _DTYPES[x.dtype], _ACTS[act], negative_slope, apply_blocks,
+        wt.data_ptr(), bs.data_ptr(), part.data_ptr(), dso.data_ptr(), n, hw,
+        c, plan.ips, plan.bpi, plan.share, plan.resident, plan.smem,
+        _DTYPES[x.dtype], _ACTS[act], negative_slope,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(lib, err, "instance_norm_act backward")
     backward_kernel.launches += 1  # kernel C launches

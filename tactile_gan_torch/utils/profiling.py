@@ -36,12 +36,11 @@ from typing import Dict, Iterable, List, Tuple
 
 TOP_KERNELS = 12  # kernel names listed by device time
 
-# The port's own kernels, matched as whole identifiers (PyTorch's
-# multi_tensor_apply_kernel, Adam's update, is not kernel A's apply_kernel).
+# The port's own kernels, matched as whole identifiers, so that no name of
+# PyTorch's own kernels that merely contains one of these counts.
 OWN_FAMILIES = (
-    ("kernel_a", ("stats_kernel", "finalize_kernel", "apply_kernel")),
-    ("kernel_c", ("in_bwd_reduce_kernel", "in_bwd_finalize_kernel",
-                  "in_bwd_dx_kernel")),
+    ("kernel_a", ("in_act_fwd_kernel",)),
+    ("kernel_c", ("in_act_bwd_kernel",)),
     ("kernel_b", ("conv3x3_fwd_sm90_kernel", "conv3x3_f32_kernel")),
     ("kernel_b_dx", ("conv3x3_dgrad_sm90_kernel", "conv3x3_dgrad_f32_kernel")),
     ("kernel_d", ("conv3x3_wgrad_sm90_kernel", "wgrad_f32_kernel",

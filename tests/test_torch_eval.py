@@ -340,8 +340,9 @@ def test_default_device_is_cuda_and_never_falls_back(tmp_path):
 def test_profile_breakdown_sorts_kernels_into_families():
     from tactile_gan_torch.utils import profiling
 
-    names = {"void (anonymous namespace)::stats_kernel<float>(...)": "kernel_a",
-             "void (anonymous namespace)::apply_kernel<__nv_bfloat16>(...)":
+    names = {"void (anonymous namespace)::in_act_fwd_kernel<float>(...)":
+                 "kernel_a",
+             "void (anonymous namespace)::in_act_fwd_kernel<__nv_bfloat16>(...)":
                  "kernel_a",
              "void (anonymous namespace)::conv3x3_fwd_sm90_kernel<float, 64>(...)":
                  "kernel_b",
@@ -351,12 +352,12 @@ def test_profile_breakdown_sorts_kernels_into_families():
         assert profiling.kernel_family(name) == family
     # Overlapping intervals count once: [0, 4) and [6, 10) are busy.
     assert profiling.busy_us([(0, 3), (1, 4), (6, 10), (7, 8)]) == 8
-    kernels = [("stats_kernel", 0, 2), ("conv3x3_f32_kernel", 2, 6),
-               ("stats_kernel", 10, 12), ("conv3x3_f32_kernel", 12, 16)]
+    kernels = [("in_act_fwd_kernel", 0, 2), ("conv3x3_f32_kernel", 2, 6),
+               ("in_act_fwd_kernel", 10, 12), ("conv3x3_f32_kernel", 12, 16)]
     res = profiling.breakdown(kernels, window_us=20, reps=2)
     assert res["device_ms"] == {"kernel_a": 2e-3, "kernel_b": 4e-3}
     assert res["launches"] == {"kernel_a": 1, "kernel_b": 1}
     assert res["idle_share"] == pytest.approx(0.4)
     assert res["top_kernels_ms"] == [["conv3x3_f32_kernel", 4e-3],
-                                     ["stats_kernel", 2e-3]]
+                                     ["in_act_fwd_kernel", 2e-3]]
     assert profiling.breakdown([], 10, 1)["idle_share"] == "not measured"

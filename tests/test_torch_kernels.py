@@ -103,11 +103,16 @@ def test_instance_norm_wrapper_refuses_other_devices_and_acts():
 @pytest.mark.parametrize("n,hw,c", [(1, 256 * 256, 64), (4, 128 * 128, 128),
                                     (1, 16 * 16, 1024), (2, 7 * 5, 24)])
 def test_instance_norm_launch_plan_covers_every_pixel(n, hw, c):
-    splits, chunk, apply_blocks = ka.launch_plan(n, hw, c)
-    assert splits * chunk >= hw > (splits - 1) * chunk  # no empty split
-    assert apply_blocks >= 1
-    if hw >= 128 * 128:  # the large rows fill the card's 132 SMs
-        assert splits * n * -(-c // 64) >= 132
+    for dtype in (torch.float32, torch.bfloat16):
+        for inputs in (1, 2):  # kernel A keeps x; kernel C x and g
+            plan = ka.launch_plan(n, hw, c, dtype, inputs)
+            # whole images a slab, no block without pixels, every pixel once
+            assert (plan.bpi - 1) * plan.share < hw <= plan.bpi * plan.share
+            assert plan.grid == plan.ips * plan.bpi <= 132
+            assert plan.resident + plan.streamed == plan.share
+            assert plan.smem <= ka.SMEM_MAX
+            if hw >= 128 * 128:  # the large rows fill the card's 132 SMs
+                assert plan.grid == 132
 
 
 # ---------------------------------------------------------------------------

@@ -543,9 +543,10 @@ def test_profile_families_tell_the_training_kernels_apart():
     from tactile_gan_torch.utils import profiling
 
     names = {
-        "void (anonymous namespace)::in_bwd_finalize_kernel(...)": "kernel_c",
-        "void (anonymous namespace)::in_bwd_dx_kernel<float>(...)": "kernel_c",
-        "void (anonymous namespace)::finalize_kernel(...)": "kernel_a",
+        "void (anonymous namespace)::in_act_bwd_kernel<__nv_bfloat16>(...)":
+            "kernel_c",
+        "void (anonymous namespace)::in_act_bwd_kernel<float>(...)": "kernel_c",
+        "void (anonymous namespace)::in_act_fwd_kernel<float>(...)": "kernel_a",
         "void (anonymous namespace)::conv3x3_dgrad_sm90_kernel<float, 64>(...)":
             "kernel_b_dx",
         "void (anonymous namespace)::conv3x3_fwd_sm90_kernel<float, 64>(...)":
