@@ -46,12 +46,18 @@ Phases, each raising on failure (each prints its seconds):
      temporary work root and ``tactile_gan_torch.cli.train.main`` runs at
      its defaults (UNet++ nf=64, batch 4, 256x256, ls loss with label
      smoothing, v1 perceptual loss on the port's seeded VGG fallback, GP
-     every epoch) for two epochs on cuda. The launch counters must show
-     exactly 30 A, 30 C, 9 B, 9 B-dx and 9 D launches a step; the losses
-     must be finite and every artifact written. Steady-state ms per step
-     and img/s (epoch 2, the host pipeline included) and peak device memory
-     are printed. The trained folder is then served through evaluate_folder
-     (train -> test end to end);
+     every epoch) for two epochs on cuda, with --checkpoint_interval 1: the
+     step replays its CUDA graph after one eager step, the batches come
+     through the prefetcher. The launch counters must show exactly 30 A,
+     30 C, 9 B, 9 B-dx and 9 D launches a step; the losses must be finite,
+     every artifact written and model_1.pth and model_2.pth read back. Then
+     the same run at --reg_every 2 (both GP variants must capture in one
+     trainer) and through the eager step (the trainer's test hook), with
+     the same counts. For each run: ms per step and img/s (epoch 2, the
+     host pipeline included), peak device memory and each variant's
+     capture seconds. The first run's folder is then served through
+     evaluate_folder in the same process (train -> test end to end), with
+     the serving launch counts;
   4. serve: a UNet++ nf=64 generator with N(0, 0.02) weights from --seed is
      loaded through the port's load_model on cuda, timed alone at batch 1
      and 4, then run through evaluate_folder (the test.py flow) over
@@ -60,7 +66,8 @@ Phases, each raising on failure (each prints its seconds):
      launch counts of both forward kernels; the card's output for one image
      must match the same weights run on the CPU through the plain path;
   5. other widths: for nf 8, 12, 24, 32 and 128, cli.train runs one epoch
-     of two steps at 64x64, batch 2, with --debug_nans, cli.test serves the
+     of two steps at 64x64, batch 2, with --debug_nans (at nf 32 also
+     --profile_dir, which must write a trace), cli.test serves the
      trained folder, and the card's forward of the trained generator is held
      to the CPU's. At nf <= 64 row 0 runs kernels B, B-dx and D (the tail
      at Co 8, 12, 24; the wgmma body at Co 32) and the launch counts must be
@@ -81,7 +88,17 @@ Phases, each raising on failure (each prints its seconds):
      (median tensor, worst tensor of the full-resolution row, worst tensor)
      that the same phase shows to lie between the step's float32 floor
      (the CPU step with perturbed weights) and three faults planted in the
-     kernels.
+     kernels;
+  8. graph_vs_eager: four training steps at train.py's defaults from one
+     initial state, batch sequence and generator seed, the learning rate
+     x0.8 from the third step: eager twice (the floor: cuDNN's backward
+     sums in no fixed order) and graphed (train/graph.py). Each step's
+     losses and every parameter after the last step must agree within
+     limits set from the floor (GVE_FACTOR times it, at least GVE_MIN), and
+     three faults planted on the graphed step must break them (or be
+     refused at capture): the relayout cache read across the capture, the
+     learning rate assigned instead of filled, the generator not
+     registered with the graph (torch refuses that capture).
 
 Then, not a gate, one call of kernel A and one of C are captured into a
 CUDA graph (torch.cuda.graph) and replayed; whether each captures is
@@ -949,67 +966,132 @@ def reset_counts(ka, kb, kd):
     kb.conv3x3_p1.launches = kb.conv3x3_p1_h.launches = 0
 
 
-def phase_train(torch, ka, kb, kd, args, record):
-    """train.py at its defaults through the port's CLI on cuda, then the
-    trained folder through evaluate_folder."""
+def train_run(torch, ka, kb, kd, root, folder, args, extra=(),
+              graphed=True):
+    """cli.train at its defaults on root/data for 2 epochs on cuda (the
+    library convs with cuDNN's TF32 default, as a user runs them), the
+    launch counters set to 0 just before and read just after: (trainer,
+    launches, seconds, peak device memory)."""
     from tactile_gan_torch.cli import train as train_cli
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ka, kb, kd)
+    t0 = time.perf_counter()
+    trainer = train_cli.main(["--data", os.path.join(root, "data"),
+                              "--total_epochs", "2", "--epoch_constant", "1",
+                              "--folder_save", folder, "--seed",
+                              str(args.seed), *extra], graphed=graphed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts(ka, kb, kd)
+    torch.backends.cudnn.allow_tf32 = False
+    return trainer, counts, seconds, torch.cuda.max_memory_allocated()
+
+
+def run_summary(trainer, counts, seconds, peak):
+    """The numbers of one training run; the launch counts checked."""
+    cfg, steps = trainer.cfg, trainer.state.step
+    want = {k: v * steps for k, v in PER_STEP.items()}
+    if counts != want:
+        raise AssertionError(f"{cfg.folder_save}: training launches "
+                             f"{counts}, expected {want} ({steps} steps)")
+    losses = {k: getattr(trainer, f"{k}_loss") for k in (
+        "gen", "disc", "l1", "gp", "per")}
+    if not all(len(v) == 2 and all(math.isfinite(x) for x in v)
+               for v in losses.values()):
+        raise AssertionError(f"{cfg.folder_save}: training losses {losses}")
+    ms = trainer.epoch_seconds[1] * 1e3 / trainer.steps_per_epoch
+    graphs = ({str(gp): c.capture_s for gp, c in
+               sorted(trainer.graphed.captured.items())}
+              if trainer.graphed is not None else None)
+    return {"steps": steps, "steps_per_epoch": trainer.steps_per_epoch,
+            "train_s": seconds, "epoch_seconds": trainer.epoch_seconds,
+            "ms_per_step": ms, "img_per_s": TRAIN_BATCH * 1e3 / ms,
+            "peak_mem_bytes": peak, "launches": counts, "losses": losses,
+            "capture_s": graphs}
+
+
+def print_run(label, r):
+    graphs = ("eager step" if r["capture_s"] is None else "captured "
+              + ", ".join(f"GP {gp}: {s:.2f} s" for gp, s in
+                          r["capture_s"].items()))
+    print(f"train ({label}): {r['steps']} steps in {r['train_s']:.2f} s "
+          f"(epochs {r['epoch_seconds'][0]:.2f} s, "
+          f"{r['epoch_seconds'][1]:.2f} s); epoch 2: {r['ms_per_step']:.2f} "
+          f"ms/step = {r['img_per_s']:.2f} img/s at batch {TRAIN_BATCH}; "
+          f"peak memory {r['peak_mem_bytes'] / 2**30:.2f} GiB; {graphs}; "
+          f"launches {r['launches']}; losses {r['losses']}", flush=True)
+
+
+def phase_train(torch, ka, kb, kd, args, record):
+    """train.py at its defaults through the port's CLI on cuda: the step
+    replays its CUDA graph, with periodic checkpoints; again at --reg_every
+    2 (both GP variants captured in one trainer) and through the eager step
+    (the test hook); then the trained folder through evaluate_folder, in the
+    same process."""
     from tactile_gan_torch.eval import runner
+    from tactile_gan_torch.utils.checkpoint import load_checkpoint
 
     out = {"pairs": TRAIN_PAIRS, "epochs": 2}
     with tempfile.TemporaryDirectory() as root:
         write_pairs(root, "train", chart_pairs(TRAIN_PAIRS, FULL_RES,
                                                args.seed + 5))
         write_pairs(root, "test", chart_pairs(8, FULL_RES, args.seed + 6))
-        # The library convs as a user runs them: cuDNN's TF32 default.
-        torch.backends.cudnn.allow_tf32 = True
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(ka, kb, kd)
-        t0 = time.perf_counter()
-        trainer = train_cli.main(["--data", os.path.join(root, "data"),
-                                  "--total_epochs", "2", "--epoch_constant",
-                                  "1", "--folder_save", "train_smoke",
-                                  "--seed", str(args.seed)])
-        torch.cuda.synchronize()
-        out["train_s"] = time.perf_counter() - t0
-        counts = launch_counts(ka, kb, kd)
-        torch.backends.cudnn.allow_tf32 = False
-        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        trainer, counts, seconds, peak = train_run(
+            torch, ka, kb, kd, root, "train_smoke", args,
+            ("--checkpoint_interval", "1"))
         cfg = trainer.cfg
-        steps = trainer.state.step
-        out.update(steps=steps, steps_per_epoch=trainer.steps_per_epoch,
-                   launches=counts, epoch_seconds=trainer.epoch_seconds,
-                   config={k: getattr(cfg, k) for k in (
-                       "gen", "nf", "batch_size", "image_size", "loss",
-                       "lambda_gp", "lambda_per", "version", "compute_dtype",
-                       "host_aug")})
-        want = {k: v * steps for k, v in PER_STEP.items()}
-        if counts != want:
-            raise AssertionError(f"training launches {counts}, expected "
-                                 f"{want} ({steps} steps)")
         if (cfg.gen, cfg.nf, cfg.batch_size, cfg.image_size) != (
                 "UNet++", 64, TRAIN_BATCH, FULL_RES) or not trainer.vgg_random_fallback:
             raise AssertionError(f"not the default training config: {cfg}")
+        graphed = run_summary(trainer, counts, seconds, peak)
+        if sorted(trainer.graphed.captured) != [True]:
+            raise AssertionError(f"captured GP variants "
+                                 f"{sorted(trainer.graphed.captured)}, "
+                                 "expected [True] at --reg_every 1")
+        out.update(graphed)
+        out["config"] = {k: getattr(cfg, k) for k in (
+            "gen", "nf", "batch_size", "image_size", "loss", "lambda_gp",
+            "lambda_per", "version", "compute_dtype", "host_aug",
+            "checkpoint_interval")}
         model_dir = cfg.models_dir()
-        losses = {k: np.load(os.path.join(model_dir, f"{k}loss.npy")).tolist()
-                  for k in ("gen", "disc", "l1", "gp", "per")}
-        out["losses"] = losses
-        if not all(len(v) == 2 and all(math.isfinite(x) for x in v)
-                   for v in losses.values()):
-            raise AssertionError(f"training losses {losses}")
-        if not (min(losses["gp"]) > 0 and min(losses["per"]) > 0):
-            raise AssertionError(f"GP or perceptual term missing: {losses}")
+        if not (min(graphed["losses"]["gp"]) > 0
+                and min(graphed["losses"]["per"]) > 0):
+            raise AssertionError(f"GP or perceptual term missing: "
+                                 f"{graphed['losses']}")
         for name in ("final_model.pth", "params.txt"):
             if not os.path.exists(os.path.join(model_dir, name)):
                 raise AssertionError(f"{name} not written")
-        ms = trainer.epoch_seconds[1] * 1e3 / trainer.steps_per_epoch
-        out["ms_per_step"] = ms
-        out["img_per_s"] = TRAIN_BATCH * 1e3 / ms
-        print(f"train: {steps} steps in {out['train_s']:.2f} s (epochs "
-              f"{trainer.epoch_seconds[0]:.2f} s, {trainer.epoch_seconds[1]:.2f}"
-              f" s); steady state {ms:.2f} ms/step = {out['img_per_s']:.2f} "
-              f"img/s at batch {TRAIN_BATCH}; peak memory "
-              f"{out['peak_mem_bytes'] / 2**30:.2f} GiB; launches {counts}; "
-              f"losses {losses}", flush=True)
+        checkpoints = {}
+        for epoch in (1, 2):
+            path = os.path.join(trainer.checkpoints_dir(),
+                                f"model_{epoch}.pth")
+            ckpt = load_checkpoint(path)
+            checkpoints[epoch] = ckpt["step"]
+            if ckpt["step"] != epoch * trainer.steps_per_epoch or set(
+                    ckpt["gen"]) != set(trainer.gen.state_dict()):
+                raise AssertionError(f"{path}: step {ckpt['step']}, "
+                                     f"{len(ckpt['gen'])} generator tensors")
+        out["checkpoint_steps"] = checkpoints
+        print_run("graphed, --checkpoint_interval 1", graphed)
+        print(f"checkpoints read back: model_1.pth at step {checkpoints[1]}, "
+              f"model_2.pth at step {checkpoints[2]}", flush=True)
+
+        trainer2, *run = train_run(torch, ka, kb, kd, root, "train_gp2",
+                                   args, ("--reg_every", "2"))
+        out["reg_every_2"] = run_summary(trainer2, *run)
+        if sorted(trainer2.graphed.captured) != [False, True]:
+            raise AssertionError(f"--reg_every 2 captured the GP variants "
+                                 f"{sorted(trainer2.graphed.captured)}")
+        print_run("graphed, --reg_every 2", out["reg_every_2"])
+        del trainer2
+
+        trainer3, *run = train_run(torch, ka, kb, kd, root, "train_eager",
+                                   args, graphed=False)
+        out["eager"] = run_summary(trainer3, *run)
+        print_run("eager step", out["eager"])
+        del trainer3
 
         reset_counts(ka, kb, kd)
         metrics = runner.evaluate_folder("train_smoke", work_root=root,
@@ -1034,6 +1116,7 @@ def phase_train(torch, ka, kb, kd, args, record):
 # 24; 12 also pads A, C and D), on the wgmma body at Co 32 (32) and on the
 # library conv (128).
 NF_OTHER = (8, 12, 24, 32, 128)
+NF_TRACED = 32
 NF_SIZE, NF_BATCH = 64, 2
 
 
@@ -1055,13 +1138,20 @@ def phase_nf(torch, ka, kb, kd, args, record):
                                                    args.seed + 20 + nf))
             write_pairs(root, "test", chart_pairs(NF_BATCH, NF_SIZE,
                                                   args.seed + 21 + nf))
+            # One width also traces its epoch (an eager step, the capture
+            # and a replay) under --profile_dir.
+            prof = os.path.join(root, "profile")
+            traced = ["--profile_dir", prof] if nf == NF_TRACED else []
             reset_counts(ka, kb, kd)
             trainer = train_cli.main([
                 "--data", os.path.join(root, "data"), "--nf", str(nf),
                 "--image_size", str(NF_SIZE), "--batch_size", str(NF_BATCH),
                 "--total_epochs", "1", "--epoch_constant", "1",
                 "--folder_save", f"nf{nf}", "--seed", str(args.seed),
-                "--debug_nans"])
+                "--debug_nans", *traced])
+            if traced and not any(f.endswith(".pt.trace.json") for _, _, fs
+                                  in os.walk(prof) for f in fs):
+                raise AssertionError(f"nf {nf}: --profile_dir wrote no trace")
             metrics = test_cli.main(["--folder", f"nf{nf}", "--work_root",
                                      root, "--eval_batch", str(NF_BATCH)])
             torch.cuda.synchronize()
@@ -1251,6 +1341,151 @@ def phase_step_card_vs_cpu(torch, ka, kb, args, record):
     if outside or missed:
         raise AssertionError(f"training step check: outside the limits "
                              f"{outside}; planted faults not caught {missed}")
+    return out
+
+
+# Graphed against eager training (phase 8): GVE_STEPS steps at the
+# defaults from one initial state, batch sequence and generator seed, the
+# learning rate x0.8 from the third step on. Two statistics, each against
+# the first eager run: the largest relative difference of any step's five
+# losses, and the mean |difference| of every parameter after the last step
+# in units of the base learning rate (an Adam step moves a weight by about
+# one). The limit of each is GVE_FACTOR times the floor (a second eager run
+# against the first: cuDNN's backward and the bilinear resize's backward
+# sum in no fixed order), and never below GVE_MIN.
+GVE_STEPS = 4
+GVE_MILESTONE = 2
+GVE_FACTOR = 10.0
+GVE_MIN = {"loss_rel": 1e-5, "param_mean_lr": 1e-4}
+
+
+def graph_faults(torch, kb):
+    """The faults planted on the graphed step: name -> (object, attribute,
+    faulty replacement)."""
+    from tactile_gan_torch.train import step as step_module
+
+    orig = kb._kernel_weight
+    kept = []
+
+    def stale_relayout(weight, compute_dtype, use="forward"):
+        # The capture reads the relayout cached by the eager step before it
+        # (as a cache keyed without the weight's version would): every
+        # replay convolves with the weights of that step.
+        if kb._capturing(weight):
+            hit = kb._relaid.get(weight, {}).get((compute_dtype, use))
+            if hit is not None:
+                kept.append(hit[1])
+                return hit[1]
+        return orig(weight, compute_dtype, use)
+
+    def assigned_lr(opt, lr):
+        for group in opt.param_groups:
+            group["lr"] = torch.tensor(lr, dtype=torch.float32,
+                                       device=group["params"][0].device)
+
+    return {"relayout cached across the capture": (kb, "_kernel_weight",
+                                                    stale_relayout),
+            "lr assigned, not filled": (step_module, "set_lr", assigned_lr),
+            "generator not registered": (
+                torch.cuda.CUDAGraph, "register_generator_state",
+                lambda self, generator: None)}
+
+
+def phase_graph_vs_eager(torch, ka, kb, args, record):
+    """GVE_STEPS training steps at train.py's defaults (UNet++ nf 64, batch
+    4, 256x256, GP, v1 perceptual loss on the seeded VGG fallback), eager
+    (twice: the floor) and graphed (train/graph.py) from one state, batch
+    sequence and generator seed, beside three planted faults. A gate."""
+    from tactile_gan_torch.core.config import TrainConfig
+    from tactile_gan_torch.models.blocks import init_weights
+    from tactile_gan_torch.models.factory import (
+        create_discriminator, create_generator,
+    )
+    from tactile_gan_torch.models.vgg import load_vgg_features
+    from tactile_gan_torch.train.graph import GraphedStep
+    from tactile_gan_torch.train.state import TrainState, make_optimizer
+    from tactile_gan_torch.train.step import build_train_step
+
+    cfg = TrainConfig()
+    dev = torch.device("cuda")
+    pairs = chart_pairs(GVE_STEPS * TRAIN_BATCH, FULL_RES, args.seed + 30)
+    batches = [tuple(torch.from_numpy(np.stack([p[k] for p in pairs[
+        i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]])).to(dev) for k in (0, 1))
+        for i in range(GVE_STEPS)]
+    vgg = load_vgg_features(device=dev)
+
+    def schedule(step):
+        return cfg.lr * (0.8 if step >= GVE_MILESTONE else 1.0)
+
+    def run(graphed):
+        cd = cfg.torch_compute_dtype
+        gen = create_generator(cfg.gen, nf=cfg.nf, compute_dtype=cd)
+        disc = create_discriminator("patch", nf=cfg.nf, compute_dtype=cd)
+        init_weights(gen, torch.Generator().manual_seed(args.seed + 31))
+        init_weights(disc, torch.Generator().manual_seed(args.seed + 32))
+        gen.to(dev)
+        disc.to(dev)
+        state = TrainState(gen, disc,
+                           make_optimizer(gen.parameters(), cfg.lr, cfg.beta1),
+                           make_optimizer(disc.parameters(), cfg.lr,
+                                          cfg.beta1))
+        step = build_train_step(cfg, schedule, vgg)
+        rng = torch.Generator(device=dev).manual_seed(args.seed + 33)
+        graph = GraphedStep(step, state, rng) if graphed else None
+        losses = []
+        for src, tgt in batches:
+            losses.append(graph(src, tgt, apply_gp=True) if graphed else
+                          step(state, src, tgt, apply_gp=True,
+                               generator=rng))
+        params = torch.cat([p.detach().flatten() for p in
+                            list(gen.parameters()) + list(disc.parameters())])
+        out = torch.stack(losses).cpu(), params
+        del graph, state, gen, disc
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return out
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        eager = run(False)
+
+        def reading(res):
+            (la, pa), (lb, pb) = res, eager
+            return {"loss_rel": ((la - lb).abs() / lb.abs().clamp_min(1e-30))
+                    .max().item(),
+                    "param_mean_lr": ((pa - pb).abs().mean() / cfg.lr).item()}
+
+        floor = reading(run(False))
+        limits = {k: max(GVE_FACTOR * floor[k], GVE_MIN[k]) for k in floor}
+        runs = {"graphed": reading(run(True))}
+        for name, (owner, attr, faulty) in graph_faults(torch, kb).items():
+            orig = getattr(owner, attr)
+            setattr(owner, attr, faulty)
+            try:
+                runs[f"fault {name}"] = reading(run(True))
+            except Exception as e:  # noqa: BLE001 -- a refusal is a catch
+                runs[f"fault {name}"] = {"raised": f"{type(e).__name__}: "
+                                         f"{str(e).strip()[:200]}"}
+            finally:
+                setattr(owner, attr, orig)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"graph vs eager, {GVE_STEPS} steps at the defaults: floor (eager "
+          f"vs eager) {floor}; limits {limits}", flush=True)
+    for name, r in runs.items():
+        r["within_limits"] = "raised" not in r and all(
+            r[k] <= limits[k] for k in limits)
+        print(f"graph vs eager, {name}: {r}", flush=True)
+    out = {"steps": GVE_STEPS, "milestone": GVE_MILESTONE, "floor": floor,
+           "limits": limits, "factor": GVE_FACTOR, "min": GVE_MIN,
+           "runs": runs}
+    record["graph_vs_eager"] = out
+    missed = [n for n, r in runs.items() if n.startswith("fault")
+              and r["within_limits"]]
+    if not runs["graphed"]["within_limits"] or missed:
+        raise AssertionError(f"graph vs eager: graphed {runs['graphed']}, "
+                             f"limits {limits}; planted faults not caught "
+                             f"{missed}")
     return out
 
 
@@ -1627,6 +1862,8 @@ def main() -> int:
     probe = timed("probe_conv", phase_probe, torch, ka, kb, kd, record,
                   parent)
     timed("step_card_vs_cpu", phase_step_card_vs_cpu, torch, ka, kb, args,
+          record)
+    timed("graph_vs_eager", phase_graph_vs_eager, torch, ka, kb, args,
           record)
 
     # Launches over the main paths: the training run, the trained folder

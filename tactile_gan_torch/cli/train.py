@@ -11,8 +11,10 @@ from __future__ import annotations
 import os
 
 
-def main(argv=None):
-    """Train and save; returns the Trainer (its epoch times and state)."""
+def main(argv=None, *, graphed: bool = True):
+    """Train and save; returns the Trainer (its epoch times and state).
+    ``graphed=False`` (a test hook, not a flag) runs the step eager on the
+    card."""
     from tactile_gan_torch.core.config import config_from_args
     from tactile_gan_torch.data.dataset import PairedDataset
     from tactile_gan_torch.train.loop import Trainer
@@ -23,7 +25,7 @@ def main(argv=None):
                               target=cfg.target,
                               cache_decoded=cfg.cache_decoded,
                               aug=not cfg.no_aug)
-    trainer = Trainer(cfg, train_set)
+    trainer = Trainer(cfg, train_set, graphed=graphed)
     save_path = trainer.run_and_save()
     print(f"saved model + arrays + params to {save_path}")
     return trainer

@@ -4,7 +4,9 @@
 Kept from the reference, as the JAX package keeps them:
 - the test loader builds the generator with Tanh on whatever the training
   loss was (``load_model(..., activation=None)``);
-- checkpoint loading is partial (``load_state_dict(strict=False)``).
+- checkpoint loading is partial (``load_state_dict(strict=False)``); a
+  folder the JAX package trained (msgpack ``final_model.pth``) is read
+  too.
 
 Per batch the device runs: normalize the uint8 upload, the generator, the
 uint8 quantize (float64, bit-exact with the host writers' ``_u8``) and the
@@ -35,7 +37,9 @@ from tactile_gan_torch.eval.visualize import (
 from tactile_gan_torch.models.blocks import init_weights
 from tactile_gan_torch.models.factory import create_generator
 from tactile_gan_torch.models.vgg import fallback_banner
-from tactile_gan_torch.utils.checkpoint import load_checkpoint
+from tactile_gan_torch.utils.checkpoint import (
+    is_torch_checkpoint, load_checkpoint,
+)
 from tactile_gan_torch.utils.io import mkdir
 
 
@@ -59,7 +63,10 @@ def load_model(model_path: str, cfg: TrainConfig,
     """Build the generator and restore its weights from final_model.pth.
 
     ``activation=None`` keeps the reference test loader's always-Tanh head.
-    Parameters missing from the checkpoint keep a seeded N(0, 0.02) init.
+    The file may be the port's or the JAX package's (msgpack). Parameters
+    missing from a torch checkpoint keep a seeded N(0, 0.02) init, the
+    reference's ``strict=False``; a JAX checkpoint must hold every one (its
+    names are converted, so a miss means a conversion that found nothing).
     """
     dev = resolve_device(device)
     if cfg.space_to_depth:
@@ -71,7 +78,12 @@ def load_model(model_path: str, cfg: TrainConfig,
                            activation=act,
                            compute_dtype=cfg.torch_compute_dtype)
     init_weights(gen, torch.Generator().manual_seed(0))
-    gen.load_state_dict(load_checkpoint(model_path)["gen"], strict=False)
+    missing = gen.load_state_dict(load_checkpoint(model_path)["gen"],
+                                  strict=False).missing_keys
+    if missing and not is_torch_checkpoint(model_path):
+        raise KeyError(f"{model_path}: the JAX checkpoint has no value for "
+                       f"{len(missing)} generator parameters, e.g. "
+                       f"{missing[:4]}")
     gen.to(dev).eval()
     return GeneratorForward(gen, dev), gen
 

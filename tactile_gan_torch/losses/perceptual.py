@@ -31,9 +31,10 @@ def vgg_perceptual_loss(vgg_params: Dict[str, torch.Tensor],
         img = img.float()
         if img.shape[-1] != 3:
             img = img.repeat_interleave(3, dim=-1)
-        mean = img.new_tensor(IMAGENET_MEAN)
-        std = img.new_tensor(IMAGENET_STD)
-        img = (img - mean) / std
+        # Per channel with the constants as scalars: no host-to-device
+        # copy, which a CUDA-graph capture refuses.
+        img = torch.stack([(img[..., c] - m) / s for c, (m, s) in enumerate(
+            zip(IMAGENET_MEAN, IMAGENET_STD))], dim=-1)
         return resize_bilinear(img, (224, 224)) if resize else img
 
     x_feats = vgg_features_apply(vgg_params, prep(input_img))

@@ -18,10 +18,15 @@ def create_generator(name: str, input_dim: int = 3, output_dim: int = 3,
         return UNetPlusPlus(input_dim=input_dim, output_dim=output_dim, nf=nf,
                             activation=activation, compute_dtype=compute_dtype)
     if key in ("unet", "bcdunet"):
-        raise NotImplementedError(
-            f"the {name} generator is not ported yet (ROADMAP.md, queue 1, "
-            "'Other generators')")
+        raise not_ported(name)
     raise NameError(f"{name} not a valid generator")
+
+
+def not_ported(name: str) -> NotImplementedError:
+    """The error for a generator the port does not have yet."""
+    return NotImplementedError(
+        f"the {name} generator is not ported yet (ROADMAP.md, queue 1, "
+        "'Other generators')")
 
 
 def create_discriminator(name: str = "patch", input_dim: int = 3,

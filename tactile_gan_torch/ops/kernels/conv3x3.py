@@ -198,12 +198,30 @@ _RELAYOUTS = {
 # The re-laid weights, kept while their source tensor lives, is not
 # written in place (its version counter moves on every in-place update) and
 # keeps its storage (``.data`` reassigned, as ``Module.to`` does): one entry
-# per (compute dtype, use) of each weight.
+# per (compute dtype, use) of each weight. A CUDA graph breaks the version
+# rule both ways, so under capture the relayout is always recorded into the
+# graph (each replay re-lays the weights it finds) and never cached, and a
+# replay, which updates weights without moving their version counter, is
+# followed by ``invalidate_relayouts`` (``train/graph.py``).
 _relaid = WeakIdKeyDictionary()
+
+
+def _capturing(weight: torch.Tensor) -> bool:
+    """Whether the current stream of ``weight``'s CUDA device is being
+    captured into a graph (never for a CPU tensor)."""
+    return weight.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def invalidate_relayouts() -> None:
+    """Forget every cached relayout: the next eager call re-lays its
+    weight."""
+    _relaid.clear()
 
 
 def _kernel_weight(weight: torch.Tensor, compute_dtype: torch.dtype,
                    use: str = "forward") -> torch.Tensor:
+    if _capturing(weight):
+        return _RELAYOUTS[use](weight.detach(), compute_dtype)
     key = (weight._version, weight.data_ptr())
     entries = _relaid.setdefault(weight, {})
     hit = entries.get((compute_dtype, use))

@@ -2,18 +2,27 @@
 the device, the Adam pair and the multistep schedule, walks the epochs with
 the per-epoch gradient-penalty gate, keeps the per-epoch loss means and
 writes the artifacts into ``{work_root}/models/{folder_save}``:
-``final_model.pth``, ``{gen,disc,l1,per,gp}loss.npy`` and ``params.txt``.
+``final_model.pth``, ``{gen,disc,l1,per,gp}loss.npy`` and ``params.txt``;
+with ``--checkpoint_interval N``, ``checkpoints/{folder_save}/model_{epoch}
+.pth`` every N epochs (the port's torch format, written on a background
+thread).
 
-Left out for now (the trainer refuses them): periodic checkpoints
-(``--checkpoint_interval``) and the orbax backend, the device-side
-augmentation of ``--no-host_aug``, the version-2 perceptual loss and the
-network variants ``--space_to_depth`` and ``--disc_same_pad``,
-``--legacy_label_cache``. ``--continue_training`` reads a checkpoint the
-port wrote. ``--debug_nans`` raises ``FloatingPointError`` after the first
-step whose losses are not finite (the JAX package also turns on
-``jax_debug_nans``, which raises inside the step at the first non-finite
-operation; the port has no such per-operation check), and ``--profile_dir``
-traces the first epoch, as in the JAX package.
+On the card the step runs as one CUDA graph per gradient-penalty variant
+(``train/graph.py``) and the batches come through ``data/prefetch.py``, so
+batch k+1 is on the device when step k ends; on the CPU both stay eager.
+``--continue_training`` reads ``final_model.pth`` in either format (the
+port's, or the JAX package's msgpack, whose ``step`` restarts the schedule
+as the JAX trainer does). ``--debug_nans`` raises ``FloatingPointError``
+after the first step whose losses are not finite (the JAX package also
+turns on ``jax_debug_nans``, which raises inside the step at the first
+non-finite operation; the port has no such per-operation check), and
+``--profile_dir`` traces the first epoch, graph replays included, as in the
+JAX package.
+
+Left out for now (the trainer refuses them): the orbax checkpoint backend,
+the device-side augmentation of ``--no-host_aug``, the version-2 perceptual
+loss and the network variants ``--space_to_depth`` and ``--disc_same_pad``,
+``--legacy_label_cache``.
 """
 
 from __future__ import annotations
@@ -28,15 +37,22 @@ import torch
 from tactile_gan_torch.core.config import TrainConfig
 from tactile_gan_torch.core.device import resolve_device
 from tactile_gan_torch.data.dataset import PairedDataset
+from tactile_gan_torch.data.prefetch import Prefetcher
 from tactile_gan_torch.models.blocks import init_weights
 from tactile_gan_torch.models.factory import create_discriminator, create_generator
 from tactile_gan_torch.models.vgg import (
     fallback_banner, load_vgg_features, resolve_weights_path,
 )
+from tactile_gan_torch.train.graph import GraphedStep
 from tactile_gan_torch.train.schedule import multistep_lr
-from tactile_gan_torch.train.state import TrainState, make_optimizer
+from tactile_gan_torch.train.state import (
+    TrainState, load_optimizer_state, make_optimizer,
+)
 from tactile_gan_torch.train.step import METRICS, build_train_step
-from tactile_gan_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from tactile_gan_torch.utils.checkpoint import (
+    AsyncCheckpointer, load_checkpoint, save_checkpoint,
+)
+from tactile_gan_torch.utils.convert import load_adam_state
 from tactile_gan_torch.utils.io import mkdir
 from tactile_gan_torch.utils.profiling import nan_guard, trace
 
@@ -46,7 +62,6 @@ def _refuse_unported(cfg: TrainConfig) -> None:
         "--space_to_depth": cfg.space_to_depth,
         "--disc_same_pad": cfg.disc_same_pad,
         "--legacy_label_cache": cfg.legacy_label_cache,
-        "--checkpoint_interval": cfg.checkpoint_interval != -1,
         "--ckpt_backend orbax": cfg.ckpt_backend != "native",
         "--no-host_aug (device-side augmentation)":
             not cfg.host_aug and not cfg.no_aug,
@@ -57,9 +72,24 @@ def _refuse_unported(cfg: TrainConfig) -> None:
             f"not ported yet: {', '.join(named)} (ROADMAP.md, queue 1)")
 
 
-class Trainer:
+def _restore_optimizer(opt: torch.optim.Adam, model: torch.nn.Module,
+                       saved) -> None:
+    """A torch optimizer state_dict (the port's checkpoints) or the JAX
+    package's Adam state as ``load_checkpoint`` converts it (count and
+    moments in the port's parameter names)."""
+    if "param_groups" in saved:
+        load_optimizer_state(opt, saved)
+    else:
+        load_adam_state(opt, model, saved["mu"], saved["nu"], saved["count"],
+                        dict)
 
-    def __init__(self, cfg: TrainConfig, dataset: PairedDataset):
+
+class Trainer:
+    """``graphed`` (a test hook): on the card, run the step as CUDA graphs
+    (the default) or eager."""
+
+    def __init__(self, cfg: TrainConfig, dataset: PairedDataset,
+                 graphed: bool = True):
         _refuse_unported(cfg)
         self.cfg = cfg
         self.dataset = dataset
@@ -98,10 +128,11 @@ class Trainer:
         opt_d = make_optimizer(self.disc.parameters(), cfg.lr, cfg.beta1)
         self.step_offset = 0
         if restored is not None:
-            for opt, key in ((opt_g, "optimizerG_state_dict"),
-                             (opt_d, "optimizerD_state_dict")):
+            for opt, model, key in ((opt_g, self.gen, "optimizerG_state_dict"),
+                                    (opt_d, self.disc,
+                                     "optimizerD_state_dict")):
                 if key in restored:
-                    opt.load_state_dict(restored[key])
+                    _restore_optimizer(opt, model, restored[key])
             self.step_offset = int(restored.get("step", 0))
         self.state = TrainState(self.gen, self.disc, opt_g, opt_d,
                                 step=self.step_offset)
@@ -118,6 +149,10 @@ class Trainer:
             vgg = load_vgg_features(cfg.vgg_weights, device=self.device)
         self.step_fn = build_train_step(cfg, self.schedule, vgg)
         self.rng = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self.graphed = (GraphedStep(self.step_fn, self.state, self.rng)
+                        if graphed and self.device.type == "cuda" else None)
+        self.prefetch = Prefetcher(self.device)
+        self.checkpointer = AsyncCheckpointer()
 
         self.gen_loss, self.disc_loss = [], []
         self.l1_loss, self.per_loss, self.gp_loss = [], [], []
@@ -136,17 +171,13 @@ class Trainer:
                         else contextlib.nullcontext())
             metrics = []
             with profiler:
-                for src_u8, tgt_u8, _ in self.dataset.batches(
+                for src, tgt, _ in self.prefetch(self.dataset.batches(
                         cfg.batch_size, shuffle=True, seed=cfg.seed + epoch,
                         drop_last=not self.pad_mode,
                         pad_to_batch=self.pad_mode, threads=cfg.threads,
                         host_augment=host_aug,
-                        augment_seed=cfg.seed + 7919 * epoch):
-                    src = torch.from_numpy(src_u8).to(self.device)
-                    tgt = torch.from_numpy(tgt_u8).to(self.device)
-                    metrics.append(self.step_fn(self.state, src, tgt,
-                                                apply_gp=apply_gp,
-                                                generator=self.rng))
+                        augment_seed=cfg.seed + 7919 * epoch)):
+                    metrics.append(self._step(src, tgt, apply_gp))
                     if cfg.debug_nans:  # one transfer a step
                         nan_guard(dict(zip(METRICS, metrics[-1].tolist())),
                                   step_info=f"(epoch {epoch}, step "
@@ -173,13 +204,32 @@ class Trainer:
                 print(f"\ttook {dt:.2f} seconds")
                 print(f"\tapproximately {dt * (cfg.total_epochs - epoch):.2f} "
                       f"seconds left", flush=True)
+            if (cfg.checkpoint_interval != -1
+                    and epoch % cfg.checkpoint_interval == 0):
+                self.checkpointer.save(
+                    os.path.join(self.checkpoints_dir(), f"model_{epoch}.pth"),
+                    **self._state_dicts())
+        self.checkpointer.wait()
+
+    def _step(self, src: torch.Tensor, tgt: torch.Tensor,
+              apply_gp: bool) -> torch.Tensor:
+        if self.graphed is not None:
+            return self.graphed(src, tgt, apply_gp=apply_gp)
+        return self.step_fn(self.state, src, tgt, apply_gp=apply_gp,
+                            generator=self.rng)
+
+    def checkpoints_dir(self) -> str:
+        return os.path.join(self.cfg.work_root, "checkpoints",
+                            self.cfg.folder_save)
+
+    def _state_dicts(self) -> dict:
+        s = self.state
+        return dict(gen=s.gen.state_dict(), disc=s.disc.state_dict(),
+                    opt_g=s.opt_g.state_dict(), opt_d=s.opt_d.state_dict(),
+                    step=s.step)
 
     def save_model(self, modelpath: str) -> None:
-        s = self.state
-        save_checkpoint(modelpath, gen=s.gen.state_dict(),
-                        disc=s.disc.state_dict(),
-                        opt_g=s.opt_g.state_dict(),
-                        opt_d=s.opt_d.state_dict(), step=s.step)
+        save_checkpoint(modelpath, **self._state_dicts())
 
     def save_arrays(self, path: str) -> None:
         for name, values in (("genloss", self.gen_loss),
@@ -199,6 +249,7 @@ class Trainer:
         """Train, then write the model, the loss arrays and params.txt.
         Returns the model directory."""
         save_path = self.cfg.models_dir()
+        mkdir(self.checkpoints_dir())
         mkdir(save_path)
         self.train(progress=progress)
         self.save_model(os.path.join(save_path, "final_model.pth"))

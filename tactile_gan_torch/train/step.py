@@ -38,34 +38,48 @@ def preprocess(src_u8: torch.Tensor, tgt_u8: torch.Tensor):
     return src_u8.float() / 255.0 * 2.0 - 1.0, tgt_u8.float() / 255.0
 
 
-def _apply(opt: torch.optim.Optimizer, params, grads, lr: float) -> None:
+def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
     for p, g in zip(params, grads):
         p.grad = g
-    set_lr(opt, lr)
     opt.step()
     opt.zero_grad(set_to_none=True)
 
 
-def build_train_step(cfg: TrainConfig, schedule: Callable[[int], float],
-                     vgg_params: Optional[Dict[str, torch.Tensor]] = None):
-    """Returns step(state, src_u8, tgt_u8, *, apply_gp, generator=None,
-    label_noise=None, gp_alpha=None) -> the five losses (device tensor)."""
-    if cfg.lambda_per != 0 and cfg.version != 1:
-        raise NotImplementedError(
-            "the version-2 perceptual loss (pan_loss) is not ported yet "
-            "(ROADMAP.md, queue 1, 'Variants')")
-    if cfg.lambda_per != 0 and vgg_params is None:
-        raise ValueError("the v1 perceptual loss needs the VGG tower")
-    mode, smoothing = cfg.loss, cfg.label_smoothing
+class TrainStep:
+    """``step(state, src_u8, tgt_u8, *, apply_gp, generator=None,
+    label_noise=None, gp_alpha=None)`` -> the five losses (device tensor):
+    ``set_lr`` (the schedule's rate at ``state.step``, set outside any
+    captured region), then ``compute`` (the step's device work, which moves
+    no Python counter), then ``state.step += 1``. ``train/graph.py``
+    captures ``compute`` and runs the other two around each replay."""
 
-    def step(state: TrainState, src_u8: torch.Tensor, tgt_u8: torch.Tensor,
-             *, apply_gp: bool, generator: Optional[torch.Generator] = None,
-             label_noise: Optional[torch.Tensor] = None,
-             gp_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def __init__(self, cfg: TrainConfig, schedule: Callable[[int], float],
+                 vgg_params: Optional[Dict[str, torch.Tensor]] = None):
+        if cfg.lambda_per != 0 and cfg.version != 1:
+            raise NotImplementedError(
+                "the version-2 perceptual loss (pan_loss) is not ported yet "
+                "(ROADMAP.md, queue 1, 'Variants')")
+        if cfg.lambda_per != 0 and vgg_params is None:
+            raise ValueError("the v1 perceptual loss needs the VGG tower")
+        self.cfg = cfg
+        self.schedule = schedule
+        self.vgg_params = vgg_params
+
+    def set_lr(self, state: TrainState) -> None:
+        lr = self.schedule(state.step)
+        set_lr(state.opt_d, lr)
+        set_lr(state.opt_g, lr)
+
+    def compute(self, state: TrainState, src_u8: torch.Tensor,
+                tgt_u8: torch.Tensor, *, apply_gp: bool,
+                generator: Optional[torch.Generator] = None,
+                label_noise: Optional[torch.Tensor] = None,
+                gp_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        mode, smoothing = cfg.loss, cfg.label_smoothing
         gen, disc = state.gen, state.disc
         real_a, real_b = preprocess(src_u8, tgt_u8)
         batch = real_a.shape[0]
-        lr = schedule(state.step)
 
         fake = gen(real_a)
 
@@ -92,7 +106,7 @@ def build_train_step(cfg: TrainConfig, schedule: Callable[[int], float],
                                   lambda_gp=cfg.lambda_gp)
         d_params = list(disc.parameters())
         _apply(state.opt_d, d_params,
-               torch.autograd.grad(loss_d + gp, d_params), lr)
+               torch.autograd.grad(loss_d + gp, d_params))
 
         # -------- G update, against the updated D --------
         pred_fake_g, _ = disc(real_a, fake)
@@ -103,14 +117,24 @@ def build_train_step(cfg: TrainConfig, schedule: Callable[[int], float],
         loss_g = loss_gan + loss_l1 * cfg.lambda_a
         loss_per = torch.zeros((), device=pred.device)
         if cfg.lambda_per != 0:
-            loss_per = vgg_perceptual_loss(vgg_params, real_b, fake,
+            loss_per = vgg_perceptual_loss(self.vgg_params, real_b, fake,
                                            weights=cfg.w_per) * cfg.lambda_per
             loss_g = loss_g + loss_per
         g_params = list(gen.parameters())
-        _apply(state.opt_g, g_params, torch.autograd.grad(loss_g, g_params),
-               lr)
-        state.step += 1
+        _apply(state.opt_g, g_params, torch.autograd.grad(loss_g, g_params))
         return torch.stack([loss_d, loss_gan, loss_l1, gp,
                             loss_per]).detach().float()
 
-    return step
+    def __call__(self, state: TrainState, src_u8: torch.Tensor,
+                 tgt_u8: torch.Tensor, **kw) -> torch.Tensor:
+        self.set_lr(state)
+        losses = self.compute(state, src_u8, tgt_u8, **kw)
+        state.step += 1
+        return losses
+
+
+def build_train_step(cfg: TrainConfig, schedule: Callable[[int], float],
+                     vgg_params: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> TrainStep:
+    """The eager step (``TrainStep``) of ``cfg`` under ``schedule``."""
+    return TrainStep(cfg, schedule, vgg_params)

@@ -130,11 +130,15 @@ def load_adam_state(opt: torch.optim.Adam, model: torch.nn.Module,
     """Set ``opt``'s state for ``model``'s parameters from optax Adam state:
     ``mu`` and ``nu`` are param-shaped JAX trees, ``count`` the update
     count, ``to_state_dict`` the model's weight conversion (e.g.
-    ``unetpp_state_dict_from_jax``)."""
+    ``unetpp_state_dict_from_jax``). A capturable optimizer keeps its step
+    counts as float32 on the parameters' device, as torch's own
+    ``load_state_dict`` places them; any other keeps them on the CPU."""
     mu_sd, nu_sd = to_state_dict(mu), to_state_dict(nu)
+    capturable = opt.param_groups[0].get("capturable", False)
     for name, p in model.named_parameters():
         opt.state[p] = {
-            "step": torch.tensor(float(count)),
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if capturable else "cpu"),
             "exp_avg": mu_sd[name].to(p.device, p.dtype).clone(),
             "exp_avg_sq": nu_sd[name].to(p.device, p.dtype).clone()}
 

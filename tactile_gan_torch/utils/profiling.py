@@ -8,18 +8,21 @@ Builds the UNet++ nf=64 generator at 256x256 with N(0, 0.02) weights from
 ``--reps`` forwards per batch size under ``torch.profiler``; ``--train``
 runs ``--reps`` steady-state training steps at the defaults (batch 4, the
 PatchGAN discriminator, GP, the v1 perceptual loss on the seeded VGG
-fallback, label smoothing, Adam) after two warm-up steps, on a fixed
-random batch. Each prints the host wall time of one forward or step, the
-device time of one summed by kernel family (kernels A and C, B forward and
-B-dx, D, library convs, everything else) and for the kernels that took the
-most, and the share of the profiled window in which no kernel ran. Needs a
-CUDA device; the JSON goes to ``--out``. A profile that records no device
-kernel reports the device times as not measured instead of zeros.
+fallback, label smoothing, Adam) on a fixed random batch, twice: as the
+trainer runs them (``train/graph.py``'s replays, after one eager step and
+the capture) and through the eager step, each after two warm-up steps.
+Each prints the host wall time of one forward or step, the device time of
+one summed by kernel family (kernels A and C, B forward and B-dx, D,
+library convs, everything else) and for the kernels that took the most,
+the share of the profiled window in which no kernel ran, and the kernel
+and graph launches the host made a step. Needs a CUDA device; the JSON
+goes to ``--out``. A profile that records no device kernel reports the
+device times as not measured instead of zeros.
 
 The trainer's hooks live here too: ``trace`` (``--profile_dir``, a
-``torch.profiler`` trace of the first epoch) and ``nan_guard``
-(``--debug_nans``, a check of each step's losses), the port of
-``tactile_gan_tpu/utils/profiling.py``'s pair.
+``torch.profiler`` trace of the first epoch), ``nan_guard``
+(``--debug_nans``, a check of each step's losses) and ``StepTimer``, the
+port of ``tactile_gan_tpu/utils/profiling.py``'s three.
 """
 
 from __future__ import annotations
@@ -54,6 +57,40 @@ _OWN = [(fam, re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(keys) + r")\b"))
         for fam, keys in OWN_FAMILIES]
 # Substrings of the library's convolution kernels.
 LIBRARY_CONV = ("conv", "xmma", "cudnn", "cutlass", "gemm", "sm90_", "sm80_")
+# The host-side calls that launch device work: a kernel, or a whole graph.
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+class StepTimer:
+    """Host time of each step, with p50/p90: ``start()``, then
+    ``stop(block_on=t)``, which first waits for the device of tensor ``t``
+    (nothing to wait for on the CPU)."""
+
+    def __init__(self):
+        self.durations: List[float] = []
+        self._t0 = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self, block_on=None) -> None:
+        if block_on is not None and block_on.is_cuda:
+            import torch
+
+            torch.cuda.synchronize(block_on.device)
+        self.durations.append(time.perf_counter() - self._t0)
+
+    def summary(self) -> Dict[str, float]:
+        if not self.durations:
+            return {}
+        import numpy as np
+
+        d = np.asarray(self.durations)
+        return {"steps": int(d.size), "mean_s": float(d.mean()),
+                "p50_s": float(np.percentile(d, 50)),
+                "p90_s": float(np.percentile(d, 90))}
 
 
 def nan_guard(metrics: Dict[str, float], step_info: str = "") -> None:
@@ -160,7 +197,13 @@ def profile_calls(fn, reps: int, warmup: int = 3) -> Dict[str, object]:
     starts = [e.time_range.start for e in events]
     ends = [e.time_range.end for e in events]
     window = (max(ends) - min(starts)) if starts else wall_ms * 1e3
-    res = {"wall_ms": wall_ms / reps}
+    launched: Dict[str, int] = {}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name in HOST_LAUNCHES):
+            launched[e.name] = launched.get(e.name, 0) + 1
+    res = {"wall_ms": wall_ms / reps,
+           "host_launches": {k: v / reps for k, v in sorted(launched.items())}}
     res.update(breakdown(kernels, window, reps))
     return res
 
@@ -172,7 +215,8 @@ def profile_forward(forward, x, reps: int) -> Dict[str, object]:
 
 
 def profile_train(reps: int, seed: int) -> Dict[str, object]:
-    """One steady-state training step at the train.py defaults."""
+    """One steady-state training step at the train.py defaults, graphed as
+    the trainer runs it and eager, on one state."""
     import torch
 
     from tactile_gan_torch.core.config import TrainConfig
@@ -181,6 +225,7 @@ def profile_train(reps: int, seed: int) -> Dict[str, object]:
         create_discriminator, create_generator,
     )
     from tactile_gan_torch.models.vgg import load_vgg_features
+    from tactile_gan_torch.train.graph import GraphedStep
     from tactile_gan_torch.train.schedule import multistep_lr
     from tactile_gan_torch.train.state import TrainState, make_optimizer
     from tactile_gan_torch.train.step import build_train_step
@@ -206,10 +251,15 @@ def profile_train(reps: int, seed: int) -> Dict[str, object]:
                         dtype=torch.uint8)
     tgt = torch.randint(0, 256, shape, generator=rng, device=dev,
                         dtype=torch.uint8)
+    graphed = GraphedStep(step, state, rng)
     res = {"batch": cfg.batch_size, "image_size": cfg.image_size,
            "nf": cfg.nf}
-    res.update(profile_calls(lambda: step(state, src, tgt, apply_gp=True,
-                                          generator=rng), reps, warmup=2))
+    res["graphed"] = profile_calls(
+        lambda: graphed(src, tgt, apply_gp=True), reps, warmup=2)
+    res["graphed"]["capture_s"] = graphed.captured[True].capture_s
+    res["eager"] = profile_calls(
+        lambda: step(state, src, tgt, apply_gp=True, generator=rng), reps,
+        warmup=2)
     return res
 
 

@@ -39,6 +39,7 @@ from tactile_gan_tpu.utils.torch_migrate import patchdisc_from_torch
 from tactile_gan_torch.cli import train as port_cli
 from tactile_gan_torch.core.config import TrainConfig, config_from_args
 from tactile_gan_torch.data import dataset as port_dataset
+from tactile_gan_torch.data.prefetch import Prefetcher
 from tactile_gan_torch.data.host_aug import augment_pair_np
 from tactile_gan_torch.losses.gan_loss import gan_loss
 from tactile_gan_torch.losses.gradient_penalty import gradient_penalty
@@ -312,6 +313,23 @@ def test_batches_are_byte_equal_to_jax(tmp_path, drop_last, pad):
         assert np.array_equal(s, s2) and np.array_equal(t, t2)
 
 
+@pytest.mark.parametrize("drop_last,pad", [(True, False), (False, True)])
+def test_prefetcher_yields_the_jax_batches(tmp_path, drop_last, pad):
+    """The trainer's input path on the CPU: the dataset's batches through
+    data/prefetch.py, byte-equal to the JAX loader's, in its order."""
+    src_dir = _write_train_pairs(str(tmp_path), n=5, size=16)
+    ours = port_dataset.PairedDataset(src_dir, size=16, mode="train", aug=True)
+    theirs = jax_dataset.PairedDataset(src_dir, size=16, mode="train", aug=True)
+    kw = dict(shuffle=True, seed=23, drop_last=drop_last, pad_to_batch=pad,
+              threads=2, host_augment=True, augment_seed=22 + 7919)
+    got = list(Prefetcher(torch.device("cpu"))(ours.batches(2, **kw)))
+    want = list(theirs.batches(2, **kw))
+    assert len(got) == len(want) == (2 if drop_last else 3)
+    for (s, t, v), (s2, t2, v2) in zip(got, want):
+        assert v == v2 and s.dtype == t.dtype == torch.uint8
+        assert np.array_equal(s.numpy(), s2) and np.array_equal(t.numpy(), t2)
+
+
 # ---------------------------------------------------------------------------
 # One and two training steps against the JAX step, on injected draws.
 # ---------------------------------------------------------------------------
@@ -396,21 +414,22 @@ def _assert_updates_close(ours, theirs, label):
     assert frac_big < 0.05, f"{label}: {frac_big:.1%} elements off > lr/2"
 
 
-def _port_step(jax_two_steps, i):
+def _port_step(jax_two_steps, i, state=None, schedule=None):
     r = jax_two_steps
-    state = _port_state(r["states"][i])
+    state = state or _port_state(r["states"][i])
     cfg = TrainConfig(nf=NF, batch_size=STEP_BATCH, image_size=STEP_SIZE,
                       compute_dtype="float32", lr=LR, beta1=BETA1,
                       device="cpu")
-    step = build_train_step(cfg, multistep_lr(LR, 25, 135, 100), r["vgg"])
+    step = build_train_step(cfg, schedule or multistep_lr(LR, 25, 135, 100),
+                            r["vgg"])
     noise, alpha = r["draws"][i]
     m = step(state, torch.from_numpy(r["src"]), torch.from_numpy(r["tgt"]),
              apply_gp=True, label_noise=noise, gp_alpha=alpha)
     return state, m.numpy()
 
 
-def _check_step(jax_two_steps, i):
-    state, got = _port_step(jax_two_steps, i)
+def _check_step(jax_two_steps, i, state=None, schedule=None):
+    state, got = _port_step(jax_two_steps, i, state, schedule)
     want = np.asarray(jax_two_steps["losses"][i])
     assert np.all(want[3:] > 0)  # GP and perceptual terms really ran
     np.testing.assert_allclose(got, want, rtol=1e-4)
@@ -442,6 +461,33 @@ def test_second_train_step_from_the_carried_jax_state_matches_jax(
     _check_step(jax_two_steps, 1)
 
 
+def test_trainer_resumes_from_a_jax_msgpack_checkpoint(jax_two_steps,
+                                                      tmp_path):
+    """--continue_training from the JAX state after step 1, written by the
+    JAX package as msgpack: the port's Trainer restores the weights, both
+    Adam states and the step, and its next step matches JAX step 2."""
+    root = str(tmp_path)
+    after_one = jax_two_steps["states"][1]
+    jax_checkpoint.save_checkpoint(
+        os.path.join(root, "models", "jax", "final_model.pth"),
+        gen=after_one.g_params, disc=after_one.d_params,
+        opt_g=after_one.g_opt_state, opt_d=after_one.d_opt_state,
+        step=int(after_one.step))
+    _write_train_pairs(os.path.join(root, "data"), n=STEP_BATCH,
+                       size=STEP_SIZE)
+    cfg = config_from_args([
+        "--data", os.path.join(root, "data"), "--nf", str(NF), "--batch_size", str(STEP_BATCH), "--image_size",
+        str(STEP_SIZE), "--compute_dtype", "float32", "--lr", str(LR),
+        "--beta1", str(BETA1), "--continue_training", "--folder_load", "jax",
+        "--device", "cpu"])
+    trainer = Trainer(cfg, port_dataset.PairedDataset(
+        os.path.join(root, "data", "train", "source"), mode="train"))
+    assert trainer.state.step == trainer.step_offset == 1
+    assert all(int(trainer.state.opt_g.state[p]["step"]) == 1
+               for p in trainer.gen.parameters())
+    _check_step(jax_two_steps, 1, trainer.state, trainer.schedule)
+
+
 def test_adam_state_round_trips_through_convert(jax_two_steps):
     jstate = jax_two_steps["states"][1]
     state = _port_state(jstate)
@@ -459,15 +505,21 @@ def test_adam_state_round_trips_through_convert(jax_two_steps):
 # The trainer, its artifacts and its CLI.
 # ---------------------------------------------------------------------------
 
-def _train(root, epochs=2, extra=()):
-    _write_train_pairs(os.path.join(root, "data"), n=4, size=32, seed=3)
-    trainer = port_cli.main([
+def _run(root, epochs=2, extra=()):
+    """cli.train on 4 pairs at 32x32, batch 2, nf 4, on the CPU."""
+    os.makedirs(root, exist_ok=True)
+    if not os.path.isdir(os.path.join(root, "data")):
+        _write_train_pairs(os.path.join(root, "data"), n=4, size=32, seed=3)
+    return port_cli.main([
         "--data", os.path.join(root, "data"), "--nf", str(NF),
         "--batch_size", "2", "--image_size", "32", "--total_epochs",
         str(epochs), "--epoch_constant", "1", "--lambda_per", "0",
         "--compute_dtype", "float32", "--threads", "2", "--folder_save", "m",
         "--device", "cpu", *extra])
-    return trainer.cfg.models_dir()
+
+
+def _train(root, epochs=2, extra=()):
+    return _run(root, epochs, extra).cfg.models_dir()
 
 
 def test_trainer_writes_artifacts_that_jax_loads(tmp_path, capsys):
@@ -520,15 +572,49 @@ def test_continue_training_resumes_from_the_port_checkpoint(tmp_path):
     assert int(step) == 4
 
 
+def test_checkpoint_interval_writes_each_epochs_state(tmp_path):
+    """--checkpoint_interval 1 over two epochs: model_1.pth and
+    model_2.pth in checkpoints/m hold the state after epochs 1 and 2 (a
+    one-epoch run from the same seed, and the trainer's final state), and
+    the JAX package reads them."""
+    trainer = _run(str(tmp_path / "two"), 2, ("--checkpoint_interval", "1"))
+    folder = os.path.join(str(tmp_path / "two"), "checkpoints", "m")
+    assert sorted(os.listdir(folder)) == ["model_1.pth", "model_2.pth"]
+    one = _run(str(tmp_path / "one"), 1)
+    for name, model, step in (("model_1.pth", one.gen, 2),
+                              ("model_2.pth", trainer.gen, 4)):
+        ckpt = load_checkpoint(os.path.join(folder, name))
+        assert ckpt["step"] == step
+        sd = model.state_dict()
+        assert set(ckpt["gen"]) == set(sd)
+        assert all(torch.equal(ckpt["gen"][k], v) for k, v in sd.items())
+        theirs = jax_checkpoint.load_checkpoint(os.path.join(folder, name))
+        ours = unetpp_jax_params_from_state_dict(ckpt["gen"])
+        for (_, a), (_, b) in zip(
+                jax.tree_util.tree_leaves_with_path(ours),
+                jax.tree_util.tree_leaves_with_path(theirs["gen"]["params"])):
+            assert np.array_equal(a, np.asarray(b))
+    final = load_checkpoint(os.path.join(trainer.cfg.models_dir(),
+                                         "final_model.pth"))
+    assert all(torch.equal(final["gen"][k], v) for k, v in
+               load_checkpoint(os.path.join(folder, "model_2.pth"))
+               ["gen"].items())
+
+
 def test_train_cli_flags(tmp_path, capsys):
     cfg = config_from_args(["--lane_pack", "--mesh_data", "2", "--nf", "8"])
     note = capsys.readouterr().out
     assert "ignored" in note and "--lane_pack" in note and "--mesh_data" in note
     assert cfg.nf == 8 and cfg.device == "cuda"
     for flag in (["--space_to_depth"], ["--no-host_aug"],
-                 ["--checkpoint_interval", "5"], ["--legacy_label_cache"]):
+                 ["--legacy_label_cache"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             _train(str(tmp_path), extra=flag)
+    # --checkpoint_interval is ported: 2 epochs at interval 5 write no
+    # checkpoint, and the folder exists all the same, as in the JAX loop.
+    root = str(tmp_path / "interval")
+    _train(root, extra=["--checkpoint_interval", "5"])
+    assert os.listdir(os.path.join(root, "checkpoints", "m")) == []
     with pytest.raises(NotImplementedError, match="pan_loss"):
         _train(str(tmp_path), extra=("--version", "2", "--lambda_per", "1"))
     if not torch.cuda.is_available():
