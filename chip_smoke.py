@@ -98,7 +98,26 @@ Phases, each raising on failure (each prints its seconds):
      three faults planted on the graphed step must break them (or be
      refused at capture): the relayout cache read across the capture, the
      learning rate assigned instead of filled, the generator not
-     registered with the graph (torch refuses that capture).
+     registered with the graph (torch refuses that capture);
+  9. other_generators: UNet and BCDUNet at nf 64, batch 4, 256x256, every
+     other flag at train.py's defaults. For each: A and C against their
+     plain versions at every norm shape of its forward and step (recorded
+     from a forward on the card; affine for UNet, non-affine for BCDUNet),
+     timed beside the bound, the plain version and the library
+     (F.instance_norm + relu, its autograd backward), with their sums a
+     step; at UNet's 2x2x512 (one pixel a block) a fault planted on A and
+     on C, block 0's partial left out of the merge, must fail the check;
+     cli.train --gen G for two epochs on 16 synthetic pairs, graphed, with
+     --checkpoint_interval 1: exactly 28 A and 28 C launches a UNet step,
+     14 and 14 a BCDUNet step, no B, B-dx or D; finite losses, every
+     artifact, model_1.pth and model_2.pth read back; the trained folder
+     served through evaluate_folder (8 pairs at eval_batch 4) with its
+     counts; its forward on the card against the CPU's at batch 1 (the
+     serve phase's limits); four graphed steps against four eager ones
+     within graph_vs_eager's limits, where BCDUNet's conv biases that feed
+     a non-affine norm (true gradient 0) are left out of the parameters and
+     their gradients held below 1e-6 of the largest gradient of their
+     conv's weight in every run.
 
 Then, not a gate, one call of kernel A and one of C are captured into a
 CUDA graph (torch.cuda.graph) and replayed; whether each captures is
@@ -147,13 +166,24 @@ A_PER_FORWARD = sum(k for _, k in A_SHAPES)
 B_PER_FORWARD = sum(k for _, k in B_CINS)
 TRAIN_BATCH = 4
 TRAIN_PAIRS = 48  # synthetic training pairs: 12 steps an epoch
-# Launches per training step: one generator forward (A, B) and its
-# backward (C at A's shapes, B-dx and D at B's).
-PER_STEP = {"instance_norm_act": A_PER_FORWARD,
-            "instance_norm_act_backward": A_PER_FORWARD,
-            "conv3x3": B_PER_FORWARD, "conv3x3_dgrad": B_PER_FORWARD,
-            "conv3x3_wgrad": B_PER_FORWARD, "conv3x3_p1": 0,
-            "conv3x3_p1_h": 0}
+# Kernel A and kernel B launches a forward of each generator at nf 64:
+# UNet++ 15 double convs and its row-0 convs; UNet 7 DownBlocks and 7
+# UpBlocks, BCDUNet 7 double convs, two norms each, every conv on the
+# library (the JAX package packs only UNet++'s row 0).
+A_PER_FORWARD_OF = {"UNet++": A_PER_FORWARD, "UNet": 28, "BCDUNet": 14}
+B_PER_FORWARD_OF = {"UNet++": B_PER_FORWARD, "UNet": 0, "BCDUNet": 0}
+
+
+def per_step(gen):
+    """Launches a training step of ``gen``: one generator forward (A, B)
+    and its backward (C at A's shapes, B-dx and D at B's)."""
+    a, b = A_PER_FORWARD_OF[gen], B_PER_FORWARD_OF[gen]
+    return {"instance_norm_act": a, "instance_norm_act_backward": a,
+            "conv3x3": b, "conv3x3_dgrad": b, "conv3x3_wgrad": b,
+            "conv3x3_p1": 0, "conv3x3_p1_h": 0}
+
+
+PER_STEP = per_step("UNet++")
 # Kernel E's output against the library conv in the probe: the library
 # rounds its output to bf16 (2^-9 of each value) and sums the same bf16
 # products in another order; relative to the output's max.
@@ -992,7 +1022,7 @@ def train_run(torch, ka, kb, kd, root, folder, args, extra=(),
 def run_summary(trainer, counts, seconds, peak):
     """The numbers of one training run; the launch counts checked."""
     cfg, steps = trainer.cfg, trainer.state.step
-    want = {k: v * steps for k, v in PER_STEP.items()}
+    want = {k: v * steps for k, v in per_step(cfg.gen).items()}
     if counts != want:
         raise AssertionError(f"{cfg.folder_save}: training launches "
                              f"{counts}, expected {want} ({steps} steps)")
@@ -1359,6 +1389,82 @@ GVE_FACTOR = 10.0
 GVE_MIN = {"loss_rel": 1e-5, "param_mean_lr": 1e-4}
 
 
+def gve_inputs(torch, args, cfg):
+    """The graph-vs-eager runs' batches (GVE_STEPS of chart pairs on the
+    card), the seeded VGG fallback tower and the schedule (the rate x0.8
+    from step GVE_MILESTONE)."""
+    from tactile_gan_torch.models.vgg import load_vgg_features
+
+    dev = torch.device("cuda")
+    pairs = chart_pairs(GVE_STEPS * TRAIN_BATCH, FULL_RES, args.seed + 30)
+    batches = [tuple(torch.from_numpy(np.stack([p[k] for p in pairs[
+        i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]])).to(dev) for k in (0, 1))
+        for i in range(GVE_STEPS)]
+
+    def schedule(step):
+        return cfg.lr * (0.8 if step >= GVE_MILESTONE else 1.0)
+
+    return batches, load_vgg_features(device=dev), schedule
+
+
+def gve_run(torch, args, cfg, batches, vgg, schedule, graphed,
+            exclude=(), watch=()):
+    """Training steps at ``cfg`` over ``batches`` from the seeded initial
+    state (``args.seed``), eager or graphed (train/graph.py): (each step's
+    losses, every parameter after the last step flattened, generator's then
+    discriminator's, leaving out the generator parameters named in
+    ``exclude``, {bias: its largest gradient ratio} of ``watch``).
+    ``watch`` holds (bias, weight) names of generator parameters: at every
+    step a hook on G's Adam takes max|grad bias| / max|grad weight| (in a
+    graphed run the eager first step and the last replay)."""
+    from tactile_gan_torch.models.blocks import init_weights
+    from tactile_gan_torch.models.factory import (
+        create_discriminator, create_generator,
+    )
+    from tactile_gan_torch.train.graph import GraphedStep
+    from tactile_gan_torch.train.state import TrainState, make_optimizer
+    from tactile_gan_torch.train.step import build_train_step
+
+    dev = torch.device("cuda")
+    cd = cfg.torch_compute_dtype
+    gen = create_generator(cfg.gen, nf=cfg.nf, compute_dtype=cd)
+    disc = create_discriminator("patch", nf=cfg.nf, compute_dtype=cd)
+    init_weights(gen, torch.Generator().manual_seed(args.seed + 31))
+    init_weights(disc, torch.Generator().manual_seed(args.seed + 32))
+    gen.to(dev)
+    disc.to(dev)
+    state = TrainState(gen, disc,
+                       make_optimizer(gen.parameters(), cfg.lr, cfg.beta1),
+                       make_optimizer(disc.parameters(), cfg.lr,
+                                      cfg.beta1))
+    named = dict(gen.named_parameters())
+    ratios = []
+    if watch:
+        def hook(_opt, _args, _kwargs):
+            ratios.append(torch.stack([
+                named[b].grad.abs().max() / named[w].grad.abs().max()
+                for b, w in watch]))
+        state.opt_g.register_step_pre_hook(hook)
+    step = build_train_step(cfg, schedule, vgg)
+    rng = torch.Generator(device=dev).manual_seed(args.seed + 33)
+    graph = GraphedStep(step, state, rng) if graphed else None
+    losses = []
+    for src, tgt in batches:
+        losses.append(graph(src, tgt, apply_gp=True) if graphed else
+                      step(state, src, tgt, apply_gp=True, generator=rng))
+    params = torch.cat(
+        [p.detach().flatten() for n, p in gen.named_parameters()
+         if n not in exclude] + [p.detach().flatten()
+                                 for p in disc.parameters()])
+    worst = torch.stack(ratios).amax(0).tolist() if ratios else []
+    out = (torch.stack(losses).cpu(), params,
+           {b: r for (b, _), r in zip(watch, worst)})
+    del graph, state, gen, disc
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
 def graph_faults(torch, kb):
     """The faults planted on the graphed step: name -> (object, attribute,
     faulty replacement)."""
@@ -1397,53 +1503,12 @@ def phase_graph_vs_eager(torch, ka, kb, args, record):
     (twice: the floor) and graphed (train/graph.py) from one state, batch
     sequence and generator seed, beside three planted faults. A gate."""
     from tactile_gan_torch.core.config import TrainConfig
-    from tactile_gan_torch.models.blocks import init_weights
-    from tactile_gan_torch.models.factory import (
-        create_discriminator, create_generator,
-    )
-    from tactile_gan_torch.models.vgg import load_vgg_features
-    from tactile_gan_torch.train.graph import GraphedStep
-    from tactile_gan_torch.train.state import TrainState, make_optimizer
-    from tactile_gan_torch.train.step import build_train_step
 
     cfg = TrainConfig()
-    dev = torch.device("cuda")
-    pairs = chart_pairs(GVE_STEPS * TRAIN_BATCH, FULL_RES, args.seed + 30)
-    batches = [tuple(torch.from_numpy(np.stack([p[k] for p in pairs[
-        i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]])).to(dev) for k in (0, 1))
-        for i in range(GVE_STEPS)]
-    vgg = load_vgg_features(device=dev)
-
-    def schedule(step):
-        return cfg.lr * (0.8 if step >= GVE_MILESTONE else 1.0)
+    batches, vgg, schedule = gve_inputs(torch, args, cfg)
 
     def run(graphed):
-        cd = cfg.torch_compute_dtype
-        gen = create_generator(cfg.gen, nf=cfg.nf, compute_dtype=cd)
-        disc = create_discriminator("patch", nf=cfg.nf, compute_dtype=cd)
-        init_weights(gen, torch.Generator().manual_seed(args.seed + 31))
-        init_weights(disc, torch.Generator().manual_seed(args.seed + 32))
-        gen.to(dev)
-        disc.to(dev)
-        state = TrainState(gen, disc,
-                           make_optimizer(gen.parameters(), cfg.lr, cfg.beta1),
-                           make_optimizer(disc.parameters(), cfg.lr,
-                                          cfg.beta1))
-        step = build_train_step(cfg, schedule, vgg)
-        rng = torch.Generator(device=dev).manual_seed(args.seed + 33)
-        graph = GraphedStep(step, state, rng) if graphed else None
-        losses = []
-        for src, tgt in batches:
-            losses.append(graph(src, tgt, apply_gp=True) if graphed else
-                          step(state, src, tgt, apply_gp=True,
-                               generator=rng))
-        params = torch.cat([p.detach().flatten() for p in
-                            list(gen.parameters()) + list(disc.parameters())])
-        out = torch.stack(losses).cpu(), params
-        del graph, state, gen, disc
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return out
+        return gve_run(torch, args, cfg, batches, vgg, schedule, graphed)[:2]
 
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -1486,6 +1551,311 @@ def phase_graph_vs_eager(torch, ka, kb, args, record):
         raise AssertionError(f"graph vs eager: graphed {runs['graphed']}, "
                              f"limits {limits}; planted faults not caught "
                              f"{missed}")
+    return out
+
+
+# The other generators (phase other_generators): UNet and BCDUNet at nf 64,
+# batch 4, 256x256, all other flags at train.py's defaults.
+OTHER_GENS = ("UNet", "BCDUNet")
+OTHER_PAIRS, OTHER_TEST_PAIRS = 16, 8  # 4 steps an epoch; 2 served batches
+# UNet's deepest norm: 2x2 maps, one pixel a block (4 blocks an image).
+DEEP_SHAPE = (TRAIN_BATCH, 2, 2, 512)
+# A bias that feeds a non-affine norm has a true gradient of exactly 0; what
+# a step computes for it must stay below this share of the largest
+# gradient of its conv's weight.
+ZERO_GRAD_SHARE = 1e-6
+
+
+def zero_grad_biases(gen):
+    """(bias, weight) names of the convs of ``gen`` whose bias feeds a
+    non-affine instance norm (BCDUNet's double convs). The norm removes each
+    channel's mean, so the bias's true gradient is 0 and what either side
+    computes is rounding noise, which Adam (eps 1e-8) turns into updates of
+    about the learning rate with an arbitrary sign: these are held to the
+    noise floor and left out of the parameter comparison."""
+    if gen != "BCDUNet":
+        return ()
+    blocks = [f"conv{i}" for i in range(1, 5)] + [f"conv{i}m"
+                                                  for i in range(1, 4)]
+    return tuple((f"{b}.{u}.bias", f"{b}.{u}.weight") for b in blocks
+                 for u in (0, 3))
+
+
+def generator_norm_shapes(torch, gen_name):
+    """{(shape, affine): launches a forward} of every norm of ``gen_name``
+    at nf 64, batch 4, 256x256, recorded from one forward on the card
+    through the blocks module's instance_norm_act."""
+    from tactile_gan_torch.models import blocks
+    from tactile_gan_torch.models.factory import create_generator
+
+    seen = {}
+    real = blocks.instance_norm_act
+
+    def spy(x, weight=None, bias=None, **kw):
+        key = (tuple(x.shape), weight is not None)
+        seen[key] = seen.get(key, 0) + 1
+        return real(x, weight, bias, **kw)
+
+    gen = create_generator(gen_name, nf=64,
+                           compute_dtype=torch.bfloat16).cuda()
+    blocks.instance_norm_act = spy
+    try:
+        with torch.no_grad():
+            gen(torch.zeros(TRAIN_BATCH, FULL_RES, FULL_RES, 3,
+                            device="cuda"))
+    finally:
+        blocks.instance_norm_act = real
+    del gen
+    return seen
+
+
+def other_norm_rows(torch, ka, gen_name, shapes, seed, record):
+    """A and C against their plain versions at every norm shape of
+    ``gen_name``'s forward and step (float32 activations; affine or not,
+    as the generator has them), with ms, GB/s, the bound, the plain
+    version's and the library's ms; at UNet's 2x2x512 a fault planted on A
+    and on C (block 0's partial left out of the merge) must fail the
+    check."""
+    import torch.nn.functional as F
+
+    rng = torch.Generator(device="cuda").manual_seed(seed + 40)
+    a_rows, c_rows = [], []
+    for (shape, affine), per in shapes.items():
+        c = shape[-1]
+        x = torch.randn(shape, device="cuda", generator=rng) * 2 + 0.5
+        g = torch.randn(shape, device="cuda", generator=rng)
+        s = o = None
+        if affine:
+            s = 1 + 0.1 * torch.randn(c, device="cuda", generator=rng)
+            o = 0.1 * torch.randn(c, device="cuda", generator=rng)
+        y = ka.instance_norm_act(x, s, o, act="relu")
+        _, st = ka.forward_kernel(x, s, o, "relu", 0.2)
+        got = ka.backward_kernel(x, g, st, s, o, "relu", 0.2)
+        torch.cuda.synchronize()
+        ref = ka.instance_norm_act_plain(x, s, o, act="relu")
+        want = ka.instance_norm_act_backward_plain(x, g, st, s, o,
+                                                   act="relu")
+        label = f"{gen_name} {list(shape)}"
+        err_a = check_close(f"A {label}", y, ref, "float32")
+        err_c = check_close(f"C {label}", got[0], want[0], "float32")
+        if affine:
+            for name, u, v in zip(("dscale", "doffset"), got[1:], want[1:]):
+                check_share(f"C {label} {name}", u, v)
+        plans = [norm_plan(ka, shape, torch.float32, k) for k in (1, 2)]
+        if shape == DEEP_SHAPE:
+            record[f"{gen_name}_deep_faults"] = {
+                **planted_faults({"A block 0's partial left out":
+                                  partial_left_out(torch, ka, x, None, None,
+                                                   s, o, "relu", plans[0])},
+                                 ref, f"kernel A at {label}"),
+                **planted_faults({"C block 0's partial left out":
+                                  partial_left_out(torch, ka, x, g, st, s, o,
+                                                   "relu", plans[1])},
+                                 want[0], f"kernel C at {label}")}
+        xl = x.permute(0, 3, 1, 2)  # NCHW view, channels_last memory
+        xg = xl.detach().requires_grad_()
+        leaves = [xg] + ([s.clone().requires_grad_(),
+                          o.clone().requires_grad_()] if affine else [])
+        sl, ol = leaves[1:] if affine else (None, None)
+        yl = torch.relu(F.instance_norm(xg, weight=sl, bias=ol, eps=ka.EPS))
+        gl = g.permute(0, 3, 1, 2)
+        for rows, name, err, inputs, plan, fn, plain, lib in (
+                (a_rows, "A", err_a, 1, plans[0],
+                 lambda: ka.instance_norm_act(x, s, o, act="relu"),
+                 lambda: ka.instance_norm_act_plain(x, s, o, act="relu"),
+                 lambda: torch.relu(F.instance_norm(
+                     xl, weight=s, bias=o, eps=ka.EPS))),
+                (c_rows, "C", err_c, 2, plans[1],
+                 lambda: ka.backward_kernel(x, g, st, s, o, "relu", 0.2),
+                 lambda: ka.instance_norm_act_backward_plain(
+                     x, g, st, s, o, act="relu"),
+                 lambda: torch.autograd.grad(yl, leaves, gl,
+                                             retain_graph=True))):
+            nbytes = (inputs + 1) * x.numel() * 4
+            row = {"gen": gen_name, "shape": list(shape), "affine": affine,
+                   "dtype": "float32", "per_forward": per, "per_step": per,
+                   "max_abs_err": err, "tol": TOL["float32"],
+                   "plan": plan._asdict(),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes"}
+            row["ms"], row["call_ms"] = cuda_ms(fn)
+            row["plain_ms"], _ = cuda_ms(plain)
+            row["library_ms"], _ = cuda_ms(lib)
+            row["gbps"] = nbytes / row["ms"] / 1e6
+            rows.append(row)
+            print(f"{name} {label} {'affine' if affine else 'non-affine'} "
+                  f"x{per}: max|diff| {err:.3e} ms {row['ms']:.4f} "
+                  f"({row['gbps']:.0f} GB/s, call {row['call_ms']:.4f}) "
+                  f"plain {row['plain_ms']:.4f} library "
+                  f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+                  f"({fmt_plan(plan)})", flush=True)
+        del yl
+    sums = {}
+    for name, rows in (("A", a_rows), ("C", c_rows)):
+        sums[name] = {k: sum(r[k] * r["per_step"] for r in rows)
+                      for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"{name} a {gen_name} step: {sums[name]['ms']:.4f} ms (plain "
+              f"{sums[name]['plain_ms']:.4f}, library "
+              f"{sums[name]['library_ms']:.4f}, bound "
+              f"{sums[name]['bound_ms']:.4f})", flush=True)
+    return a_rows, c_rows, sums
+
+
+def train_serve_other(torch, ka, kb, kd, gen_name, args):
+    """cli.train --gen ``gen_name`` on the card (graphed, two epochs,
+    --checkpoint_interval 1) with its launch counts, artifacts and
+    checkpoints checked; the trained folder served through evaluate_folder
+    at eval_batch 4 with the serving counts; the trained generator's
+    forward on the card against the CPU's at batch 1."""
+    from tactile_gan_torch.eval import runner
+    from tactile_gan_torch.utils.checkpoint import load_checkpoint
+
+    with tempfile.TemporaryDirectory() as root:
+        write_pairs(root, "train", chart_pairs(OTHER_PAIRS, FULL_RES,
+                                               args.seed + 50))
+        write_pairs(root, "test", chart_pairs(OTHER_TEST_PAIRS, FULL_RES,
+                                              args.seed + 51))
+        folder = f"train_{gen_name.lower()}"
+        trainer, *run = train_run(torch, ka, kb, kd, root, folder, args, (
+            "--gen", gen_name, "--checkpoint_interval", "1"))
+        cfg = trainer.cfg
+        if (cfg.gen, cfg.nf, cfg.batch_size, cfg.image_size) != (
+                gen_name, 64, TRAIN_BATCH, FULL_RES):
+            raise AssertionError(f"not the {gen_name} config at the "
+                                 f"defaults: {cfg}")
+        out = run_summary(trainer, *run)
+        if sorted(trainer.graphed.captured) != [True]:
+            raise AssertionError(f"{gen_name}: captured GP variants "
+                                 f"{sorted(trainer.graphed.captured)}")
+        model_dir = cfg.models_dir()
+        for name in ["final_model.pth", "params.txt"] + [
+                f"{k}loss.npy" for k in ("gen", "disc", "l1", "per", "gp")]:
+            if not os.path.exists(os.path.join(model_dir, name)):
+                raise AssertionError(f"{gen_name}: {name} not written")
+        out["checkpoint_steps"] = {}
+        for epoch in (1, 2):
+            path = os.path.join(trainer.checkpoints_dir(),
+                                f"model_{epoch}.pth")
+            ckpt = load_checkpoint(path)
+            out["checkpoint_steps"][epoch] = ckpt["step"]
+            if ckpt["step"] != epoch * trainer.steps_per_epoch or set(
+                    ckpt["gen"]) != set(trainer.gen.state_dict()):
+                raise AssertionError(f"{path}: step {ckpt['step']}, "
+                                     f"{len(ckpt['gen'])} generator tensors")
+        print_run(f"{gen_name}, graphed, --checkpoint_interval 1", out)
+        print(f"{gen_name} checkpoints read back at steps "
+              f"{out['checkpoint_steps']}", flush=True)
+
+        reset_counts(ka, kb, kd)
+        metrics = runner.evaluate_folder(folder, work_root=root,
+                                         eval_batch=TRAIN_BATCH,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        serve = launch_counts(ka, kb, kd)
+        forwards = OTHER_TEST_PAIRS // TRAIN_BATCH
+        want = {k: 0 for k in serve}
+        want["instance_norm_act"] = A_PER_FORWARD_OF[gen_name] * forwards
+        if serve != want or not all(math.isfinite(v)
+                                    for v in metrics.values()):
+            raise AssertionError(f"{gen_name}: serving launches {serve}, "
+                                 f"expected {want}; metrics {metrics}")
+        out["serve_launches"], out["serve_metrics"] = serve, metrics
+        print(f"{gen_name}: served the trained folder: {metrics}; launches "
+              f"{serve}", flush=True)
+
+        ckpt = os.path.join(model_dir, "final_model.pth")
+        x = torch.from_numpy(chart_pairs(1, FULL_RES, args.seed + 52)[0][0]
+                             [None])
+        out["card_vs_cpu"] = []
+        for cd in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, compute_dtype=cd)
+            f_gpu, _ = runner.load_model(ckpt, c, device="cuda")
+            f_cpu, _ = runner.load_model(ckpt, c, device="cpu")
+            got = f_gpu(runner.normalize_u8(x.cuda())).cpu()
+            want = f_cpu(runner.normalize_u8(x))
+            d = (got - want).abs()
+            max_tol, mean_tol = SERVE_TOL[cd]
+            res = {"compute": cd, "max_abs": d.max().item(),
+                   "mean_abs": d.mean().item(), "max_tol": max_tol,
+                   "mean_tol": mean_tol}
+            out["card_vs_cpu"].append(res)
+            print(f"{gen_name} card vs CPU ({cd}): max|diff| "
+                  f"{res['max_abs']:.3e} (tol {max_tol}), mean "
+                  f"{res['mean_abs']:.3e} (tol {mean_tol})", flush=True)
+            if got.shape != (1, FULL_RES, FULL_RES, 3) or not (
+                    res["max_abs"] <= max_tol
+                    and res["mean_abs"] <= mean_tol):
+                raise AssertionError(f"{gen_name}: card and CPU disagree: "
+                                     f"{res}")
+    return out
+
+
+def gve_other(torch, args, gen_name):
+    """GVE_STEPS graphed steps of ``gen_name`` at the defaults against
+    eager ones from one state, batch sequence and generator seed, within
+    graph_vs_eager's limits (GVE_FACTOR times the eager-vs-eager floor, at
+    least GVE_MIN); the zero-gradient biases left out of the parameters and
+    their gradients held below ZERO_GRAD_SHARE in every run."""
+    from tactile_gan_torch.core.config import TrainConfig
+
+    cfg = TrainConfig(gen=gen_name)
+    batches, vgg, schedule = gve_inputs(torch, args, cfg)
+    watch = zero_grad_biases(gen_name)
+    exclude = {b for b, _ in watch}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        eager, again, graphed = (
+            gve_run(torch, args, cfg, batches, vgg, schedule, g, exclude,
+                    watch) for g in (False, False, True))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+    def reading(res):
+        (la, pa, _), (lb, pb, _) = res, eager
+        return {"loss_rel": ((la - lb).abs() / lb.abs().clamp_min(1e-30))
+                .max().item(),
+                "param_mean_lr": ((pa - pb).abs().mean() / cfg.lr).item()}
+
+    floor = reading(again)
+    limits = {k: max(GVE_FACTOR * floor[k], GVE_MIN[k]) for k in floor}
+    res = reading(graphed)
+    # Each run's largest share and the bias it belongs to.
+    ratios = {name: max(((v, b) for b, v in r[2].items()), default=None)
+              for name, r in (("eager", eager), ("eager again", again),
+                              ("graphed", graphed))}
+    out = {"floor": floor, "limits": limits, "graphed": res,
+           "zero_grad_biases": len(watch), "zero_grad_ratio": ratios,
+           "zero_grad_share": ZERO_GRAD_SHARE}
+    print(f"{gen_name} graph vs eager, {GVE_STEPS} steps: floor {floor}; "
+          f"limits {limits}; graphed {res}; zero-gradient biases "
+          f"{len(watch)}, largest gradient share {ratios}", flush=True)
+    if not all(res[k] <= limits[k] for k in limits):
+        raise AssertionError(f"{gen_name} graph vs eager: {res} outside "
+                             f"{limits}")
+    if watch and not all(r[0] <= ZERO_GRAD_SHARE for r in ratios.values()):
+        raise AssertionError(f"{gen_name}: a zero-gradient bias's gradient "
+                             f"share {ratios} is above {ZERO_GRAD_SHARE}")
+    return out
+
+
+def phase_other_generators(torch, ka, kb, kd, args, record):
+    """UNet and BCDUNet at nf 64, batch 4, 256x256: A and C at every norm
+    shape; cli.train and evaluate_folder with exact launch counts (A and C
+    each 28 a UNet step and 14 a BCDUNet step; no B, B-dx or D); the card's
+    forward against the CPU's; graphed against eager steps."""
+    out = {}
+    for gen_name in OTHER_GENS:
+        shapes = generator_norm_shapes(torch, gen_name)
+        if sum(shapes.values()) != A_PER_FORWARD_OF[gen_name] or any(
+                affine == (gen_name == "BCDUNet") for _, affine in shapes):
+            raise AssertionError(f"{gen_name}: norms of a forward {shapes}")
+        a_rows, c_rows, sums = other_norm_rows(torch, ka, gen_name, shapes,
+                                               args.seed, record)
+        res = {"kernel_a": a_rows, "kernel_c": c_rows, "step_sums": sums}
+        res["train"] = train_serve_other(torch, ka, kb, kd, gen_name, args)
+        res["graph_vs_eager"] = gve_other(torch, args, gen_name)
+        out[gen_name] = res
+    record["other_generators"] = out
     return out
 
 
@@ -1865,6 +2235,8 @@ def main() -> int:
           record)
     timed("graph_vs_eager", phase_graph_vs_eager, torch, ka, kb, args,
           record)
+    other = timed("other_generators", phase_other_generators, torch, ka, kb,
+                  kd, args, record)
 
     # Launches over the main paths: the training run, the trained folder
     # served, and the serving runs; kernel E's in the conv probe.
@@ -1875,6 +2247,11 @@ def main() -> int:
     launches["conv3x3"] += sum(r["launches_b"] for r in serve["runs"])
     for k in ("conv3x3_p1", "conv3x3_p1_h"):
         launches[k] = probe["launches"][k]
+    # The other generators' training runs and served folders.
+    for res in other.values():
+        for k in launches:
+            launches[k] += (res["train"]["launches"][k]
+                            + res["train"]["serve_launches"][k])
     fwd = serving_rows(TRAIN_BATCH)
     a_step = [r for r in a_rows if fwd(r)]
     b_step = [r for r in b_rows if fwd(r)]

@@ -6,27 +6,22 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from tactile_gan_torch.models.bcdunet import BCDUNet
 from tactile_gan_torch.models.patch_discriminator import PatchDiscriminator
+from tactile_gan_torch.models.unet import UNet
 from tactile_gan_torch.models.unet_plusplus import UNetPlusPlus
+
+GENERATORS = {"unet++": UNetPlusPlus, "unet": UNet, "bcdunet": BCDUNet}
 
 
 def create_generator(name: str, input_dim: int = 3, output_dim: int = 3,
                      nf: int = 64, activation: bool = True,
                      compute_dtype: torch.dtype = torch.float32) -> nn.Module:
-    key = name.lower()
-    if key == "unet++":
-        return UNetPlusPlus(input_dim=input_dim, output_dim=output_dim, nf=nf,
-                            activation=activation, compute_dtype=compute_dtype)
-    if key in ("unet", "bcdunet"):
-        raise not_ported(name)
-    raise NameError(f"{name} not a valid generator")
-
-
-def not_ported(name: str) -> NotImplementedError:
-    """The error for a generator the port does not have yet."""
-    return NotImplementedError(
-        f"the {name} generator is not ported yet (ROADMAP.md, queue 1, "
-        "'Other generators')")
+    cls = GENERATORS.get(name.lower())
+    if cls is None:
+        raise NameError(f"{name} not a valid generator")
+    return cls(input_dim=input_dim, output_dim=output_dim, nf=nf,
+               activation=activation, compute_dtype=compute_dtype)
 
 
 def create_discriminator(name: str = "patch", input_dim: int = 3,

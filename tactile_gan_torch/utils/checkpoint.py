@@ -10,13 +10,12 @@ on a background thread, after the caller has copied the state to the host.
 ``torch.load(weights_only=True)``. A file the JAX package wrote is flax's
 msgpack (``flax.serialization.msgpack_serialize``), decoded here with plain
 ``msgpack`` (neither flax nor jax is needed) and converted to the port's
-layout: ``gen`` through ``unetpp_state_dict_from_jax``, ``disc`` through
-``patchdisc_state_dict_from_jax`` and each optax Adam state (the state-dict
-form of ``optax.adam``'s chain: ``{"0": {count, mu, nu}, "1": ...}``) into
-``{"count", "mu", "nu"}`` with the moments in the port's parameter names,
-which ``train/loop.py`` loads through ``utils/convert.py``'s
-``load_adam_state``. Only UNet++ generators are read: a JAX checkpoint of
-another generator raises the factory's "not ported yet" error.
+layout through ``utils/convert.py``: ``gen`` by the table of the generator
+the tree holds (UNet++, UNet or BCDUNet, told apart by its first module),
+``disc`` by the PatchDiscriminator's, and each optax Adam state (the
+state-dict form of ``optax.adam``'s chain: ``{"0": {count, mu, nu}, "1":
+...}``) into ``{"count", "mu", "nu"}`` with the moments in the port's
+parameter names, which ``train/loop.py`` loads through ``load_adam_state``.
 """
 
 from __future__ import annotations
@@ -28,10 +27,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from tactile_gan_torch.models.factory import not_ported
-from tactile_gan_torch.utils.convert import (
-    patchdisc_state_dict_from_jax, unetpp_state_dict_from_jax,
-)
+from tactile_gan_torch.utils.convert import state_dict_from_jax
 
 # torch >= 1.6 archives are zip files; legacy ones start with a pickle tag.
 _TORCH_MAGIC = (b"PK", b"\x80\x02", b"\x80\x03", b"\x80\x04", b"\x80\x05")
@@ -146,7 +142,8 @@ def _refuse_chunked(tree: Any, path: str = "") -> None:
             raise NotImplementedError(
                 f"the msgpack checkpoint splits the leaf {path!r} into "
                 "chunks (flax does so above 2**30 bytes); chunked leaves are "
-                "not read (no UNet++ or PatchGAN leaf comes near that size)")
+                "not read (no leaf of the generators or the PatchGAN comes "
+                "near that size)")
         for k, v in tree.items():
             _refuse_chunked(v, f"{path}/{k}")
 
@@ -170,27 +167,25 @@ def jax_generator_name(params: Mapping) -> str:
     raise ValueError(f"not a JAX generator tree: {sorted(p)[:8]}")
 
 
-def _adam(state: Mapping, to_state_dict) -> Dict[str, Any]:
+def _adam(state: Mapping, net: str) -> Dict[str, Any]:
     """optax.adam's chain state in state-dict form -> count and the
-    moments in the port's parameter names."""
+    moments of ``net`` in the port's parameter names."""
     adam = state["0"]
-    return {"count": int(adam["count"]), "mu": to_state_dict(adam["mu"]),
-            "nu": to_state_dict(adam["nu"])}
+    return {"count": int(adam["count"]),
+            "mu": state_dict_from_jax(adam["mu"], net),
+            "nu": state_dict_from_jax(adam["nu"], net)}
 
 
 def convert_jax_checkpoint(tree: Mapping) -> Dict[str, Any]:
     """The JAX package's checkpoint tree -> the port's layout."""
-    name = jax_generator_name(tree["gen"])
-    if name != "UNet++":
-        raise not_ported(name)
-    out: Dict[str, Any] = {"gen": unetpp_state_dict_from_jax(tree["gen"])}
+    gen = jax_generator_name(tree["gen"])
+    out: Dict[str, Any] = {"gen": state_dict_from_jax(tree["gen"], gen)}
     if tree.get("disc"):
-        out["disc"] = patchdisc_state_dict_from_jax(tree["disc"])
-    for key, conv in (("optimizerG_state_dict", unetpp_state_dict_from_jax),
-                      ("optimizerD_state_dict",
-                       patchdisc_state_dict_from_jax)):
+        out["disc"] = state_dict_from_jax(tree["disc"], "patch")
+    for key, net in (("optimizerG_state_dict", gen),
+                     ("optimizerD_state_dict", "patch")):
         if tree.get(key):
-            out[key] = _adam(tree[key], conv)
+            out[key] = _adam(tree[key], net)
     if "step" in tree:
         out["step"] = int(tree["step"])
     return out

@@ -1,126 +1,174 @@
 """Carry weights and Adam state between the JAX package's trees and the
 port.
 
-UNet++: the JAX tree (numpy arrays) is ``node{r}_{c}/{a,b}/{conv/kernel
-(HWIO), norm/scale, norm/offset}`` and ``head/proj/{kernel, bias}``; the
-port's ``state_dict`` uses the PyTorch reference's names and layouts (OIHW
-conv weights, norm weight/bias). ``unetpp_state_dict_from_jax`` is the
-inverse of ``tactile_gan_tpu/utils/torch_migrate.py`` ``unetpp_from_torch``;
-``unetpp_jax_params_from_state_dict`` is the same mapping as that function,
-kept here so the port needs nothing of the JAX package. The
-PatchDiscriminator pair mirrors ``patchdisc_from_torch`` the same way.
+Each network is a table of leaves: (the leaf's path in the JAX tree, its
+name in the port's ``state_dict``, its layout). The JAX trees hold numpy
+arrays with HWIO conv kernels, instance-norm ``scale`` / ``offset`` and
+conv ``bias``; the port's ``state_dict`` uses the PyTorch reference's names
+and layouts: OIHW conv weights, IOHW transposed-conv weights (carried with
+no flip: the JAX ``conv2d_transpose`` flips its kernel itself), norm
+``weight`` / ``bias``. For each of UNet++, UNet, BCDUNet and the
+PatchDiscriminator, ``*_state_dict_from_jax`` is the inverse of
+``tactile_gan_tpu/utils/torch_migrate.py``'s ``*_from_torch`` and
+``*_jax_params_from_state_dict`` the same mapping as that function, kept
+here so the port needs nothing of the JAX package. BCDUNet's JAX tree has
+no norm parameters (its norms are not affine).
 
 Adam: optax keeps (count, mu, nu) with mu and nu shaped like the params;
 torch keeps per parameter (step, exp_avg, exp_avg_sq). The moments map
-through the same name/layout conversion as the weights.
+through the same table as the weights.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from tactile_gan_torch.models.unet import STAGES
 from tactile_gan_torch.models.unet_plusplus import ROWS
 
-_UNITS = (("a", 0, 1), ("b", 3, 4))  # JAX unit name, conv index, norm index
+# (JAX path, torch name, layout): "oihw" conv, "iohw" transposed conv,
+# "vec" bias or norm parameter.
+Leaf = Tuple[Tuple[str, ...], str, str]
+# HWIO from each torch layout; the inverse permutation goes back.
+_TO_HWIO = {"oihw": (2, 3, 1, 0), "iohw": (2, 3, 0, 1)}
+_FROM_HWIO = {"oihw": (3, 2, 0, 1), "iohw": (2, 3, 0, 1)}
 
 
-def _nodes():
+def _conv(path: Tuple[str, ...], name: str, bias: bool,
+          layout: str = "oihw") -> Iterator[Leaf]:
+    yield path + ("kernel",), f"{name}.weight", layout
+    if bias:
+        yield path + ("bias",), f"{name}.bias", "vec"
+
+
+def _norm(path: Tuple[str, ...], name: str) -> Iterator[Leaf]:
+    yield path + ("scale",), f"{name}.weight", "vec"
+    yield path + ("offset",), f"{name}.bias", "vec"
+
+
+def _cnr(path: Tuple[str, ...], conv: str, norm: str) -> Iterator[Leaf]:
+    """A ConvNormRelu unit: bias-free conv, affine norm."""
+    yield from _conv(path + ("conv",), conv, False)
+    yield from _norm(path + ("norm",), norm)
+
+
+def _unetpp() -> Iterator[Leaf]:
     for row in range(ROWS):
         for col in range(ROWS - row):
-            yield row, col
+            base = f"conv{row}_{col}.layer"
+            yield from _cnr((f"node{row}_{col}", "a"), f"{base}.0",
+                            f"{base}.1")
+            yield from _cnr((f"node{row}_{col}", "b"), f"{base}.3",
+                            f"{base}.4")
+    yield from _conv(("head", "proj"), "downfeature.conv", True)
+
+
+def _unet() -> Iterator[Leaf]:
+    for i in range(1, STAGES + 1):
+        base = f"conv{i}.layer"
+        yield from _cnr((f"down{i}", "down"), f"{base}.0", f"{base}.1")
+        yield from _cnr((f"down{i}", "refine"), f"{base}.3", f"{base}.4")
+    for i in range(1, STAGES + 1):  # the JAX up{i} is deconv{i+1}
+        base = f"deconv{i + 1}.layer"
+        yield from _conv((f"up{i}", "up"), f"{base}.0", False, "iohw")
+        yield from _norm((f"up{i}", "norm"), f"{base}.1")
+        yield from _cnr((f"up{i}", "refine"), f"{base}.3", f"{base}.4")
+    yield from _conv(("head", "proj"), "downfeature.conv", True)
+
+
+def _bcdunet() -> Iterator[Leaf]:
+    def block(path, name):
+        yield from _conv((path, "a", "conv"), f"{name}.0", True)
+        yield from _conv((path, "b", "conv"), f"{name}.3", True)
+
+    for i in range(1, 5):
+        yield from block(f"enc{i}", f"conv{i}")
+    for i in range(1, 4):
+        yield from _conv((f"up{i}",), f"upconv{i}", True, "iohw")
+        yield from block(f"dec{i}", f"conv{i}m")
+    yield from _conv(("head", "proj"), "conv0", True)
+
+
+def _patchdisc() -> Iterator[Leaf]:
+    yield from _conv(("block1_conv",), "model.0", True)
+    for k, (ci, ni) in enumerate(((2, 3), (5, 6), (8, 9)), start=2):
+        yield from _conv((f"block{k}_conv",), f"model.{ci}", False)
+        yield from _norm((f"block{k}_norm",), f"model.{ni}")
+    yield from _conv(("patch_head",), "model.11", True)
+
+
+LEAVES = {"UNet++": tuple(_unetpp()), "UNet": tuple(_unet()),
+          "BCDUNet": tuple(_bcdunet()), "patch": tuple(_patchdisc())}
+
+
+def state_dict_from_jax(params: Mapping, net: str
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX params of ``net`` (a key of LEAVES; optionally under a 'params'
+    key) -> the port's state_dict (float32 CPU tensors)."""
+    p = params.get("params", params)
+    sd = {}
+    for path, name, layout in LEAVES[net]:
+        leaf = p
+        for k in path:
+            leaf = leaf[k]
+        a = np.array(leaf, dtype=np.float32)
+        if layout != "vec":
+            a = np.ascontiguousarray(a.transpose(_FROM_HWIO[layout]))
+        sd[name] = torch.from_numpy(a)
+    return sd
+
+
+def jax_params_from_state_dict(sd: Mapping[str, torch.Tensor],
+                               net: str) -> dict:
+    """The port's state_dict of ``net`` -> the JAX param tree of numpy
+    arrays."""
+    p: dict = {}
+    for path, name, layout in LEAVES[net]:
+        a = sd[name].detach().cpu().float().numpy()
+        if layout != "vec":
+            a = a.transpose(_TO_HWIO[layout])
+        node = p
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
+    return p
 
 
 def unetpp_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX UNetPlusPlus params (optionally under a 'params' key) -> the
-    port's state_dict (float32 CPU tensors)."""
-    p = params.get("params", params)
-
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    sd = {}
-    for row, col in _nodes():
-        node = p[f"node{row}_{col}"]
-        base = f"conv{row}_{col}.layer"
-        for unit, ci, ni in _UNITS:
-            u = node[unit]
-            sd[f"{base}.{ci}.weight"] = t(u["conv"]["kernel"]).permute(3, 2, 0, 1).contiguous()
-            sd[f"{base}.{ni}.weight"] = t(u["norm"]["scale"])
-            sd[f"{base}.{ni}.bias"] = t(u["norm"]["offset"])
-    proj = p["head"]["proj"]
-    sd["downfeature.conv.weight"] = t(proj["kernel"]).permute(3, 2, 0, 1).contiguous()
-    sd["downfeature.conv.bias"] = t(proj["bias"])
-    return sd
+    return state_dict_from_jax(params, "UNet++")
 
 
 def unetpp_jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
-    """The port's state_dict -> the JAX param tree of numpy arrays."""
-
-    def a(name: str) -> np.ndarray:
-        return sd[name].detach().cpu().float().numpy()
-
-    p = {}
-    for row, col in _nodes():
-        base = f"conv{row}_{col}.layer"
-        p[f"node{row}_{col}"] = {
-            unit: {"conv": {"kernel": a(f"{base}.{ci}.weight").transpose(2, 3, 1, 0)},
-                   "norm": {"scale": a(f"{base}.{ni}.weight"),
-                            "offset": a(f"{base}.{ni}.bias")}}
-            for unit, ci, ni in _UNITS}
-    p["head"] = {"proj": {
-        "kernel": a("downfeature.conv.weight").transpose(2, 3, 1, 0),
-        "bias": a("downfeature.conv.bias")}}
-    return p
+    return jax_params_from_state_dict(sd, "UNet++")
 
 
-# (JAX module, torch conv index, torch norm index or None)
-_DISC = (("block1_conv", 0, None), ("block2_conv", 2, 3),
-         ("block3_conv", 5, 6), ("block4_conv", 8, 9),
-         ("patch_head", 11, None))
+def unet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    return state_dict_from_jax(params, "UNet")
 
 
-def _norm_name(conv_name: str) -> str:
-    return conv_name.replace("_conv", "_norm")
+def unet_jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
+    return jax_params_from_state_dict(sd, "UNet")
+
+
+def bcdunet_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    return state_dict_from_jax(params, "BCDUNet")
+
+
+def bcdunet_jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]
+                                       ) -> dict:
+    return jax_params_from_state_dict(sd, "BCDUNet")
 
 
 def patchdisc_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX PatchDiscriminator params (optionally under 'params') -> the
-    port's state_dict (float32 CPU tensors)."""
-    p = params.get("params", params)
-
-    def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    sd = {}
-    for name, ci, ni in _DISC:
-        sd[f"model.{ci}.weight"] = t(p[name]["kernel"]).permute(3, 2, 0, 1).contiguous()
-        if "bias" in p[name]:
-            sd[f"model.{ci}.bias"] = t(p[name]["bias"])
-        if ni is not None:
-            norm = p[_norm_name(name)]
-            sd[f"model.{ni}.weight"] = t(norm["scale"])
-            sd[f"model.{ni}.bias"] = t(norm["offset"])
-    return sd
+    return state_dict_from_jax(params, "patch")
 
 
-def patchdisc_jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
-    """The port's PatchDiscriminator state_dict -> the JAX param tree."""
-
-    def a(name: str) -> np.ndarray:
-        return sd[name].detach().cpu().float().numpy()
-
-    p = {}
-    for name, ci, ni in _DISC:
-        p[name] = {"kernel": a(f"model.{ci}.weight").transpose(2, 3, 1, 0)}
-        if f"model.{ci}.bias" in sd:
-            p[name]["bias"] = a(f"model.{ci}.bias")
-        if ni is not None:
-            p[_norm_name(name)] = {"scale": a(f"model.{ni}.weight"),
-                                   "offset": a(f"model.{ni}.bias")}
-    return p
+def patchdisc_jax_params_from_state_dict(sd: Mapping[str, torch.Tensor]
+                                         ) -> dict:
+    return jax_params_from_state_dict(sd, "patch")
 
 
 def load_adam_state(opt: torch.optim.Adam, model: torch.nn.Module,

@@ -1,10 +1,11 @@
 """Where the device time of a serving forward or a training step goes.
 
-    python -m tactile_gan_torch.utils.profiling [--batch 1 4] [--reps 5]
-    python -m tactile_gan_torch.utils.profiling --train [--reps 3]
+    python -m tactile_gan_torch.utils.profiling [--gen G] [--batch 1 4] [--reps 5]
+    python -m tactile_gan_torch.utils.profiling --train [--gen G] [--reps 3]
 
-Builds the UNet++ nf=64 generator at 256x256 with N(0, 0.02) weights from
-``--seed`` and the default bfloat16 compute. The default mode runs
+Builds the ``--gen`` generator (UNet++, UNet or BCDUNet; UNet++ by default)
+at nf=64 and 256x256 with N(0, 0.02) weights from ``--seed`` and the
+default bfloat16 compute. The default mode runs
 ``--reps`` forwards per batch size under ``torch.profiler``; ``--train``
 runs ``--reps`` steady-state training steps at the defaults (batch 4, the
 PatchGAN discriminator, GP, the v1 perceptual loss on the seeded VGG
@@ -15,7 +16,8 @@ Each prints the host wall time of one forward or step, the device time of
 one summed by kernel family (kernels A and C, B forward and B-dx, D,
 library convs, everything else) and for the kernels that took the most,
 the share of the profiled window in which no kernel ran, and the kernel
-and graph launches the host made a step. Needs a CUDA device; the JSON
+and graph launches the host made a step; ``--train`` also the peak device
+memory up to the graphed profile. Needs a CUDA device; the JSON
 goes to ``--out``. A profile that records no device kernel reports the
 device times as not measured instead of zeros.
 
@@ -214,9 +216,11 @@ def profile_forward(forward, x, reps: int) -> Dict[str, object]:
     return res
 
 
-def profile_train(reps: int, seed: int) -> Dict[str, object]:
-    """One steady-state training step at the train.py defaults, graphed as
-    the trainer runs it and eager, on one state."""
+def profile_train(reps: int, seed: int, gen_name: str = "UNet++"
+                  ) -> Dict[str, object]:
+    """One steady-state training step at the train.py defaults (with the
+    ``gen_name`` generator), graphed as the trainer runs it and eager, on
+    one state."""
     import torch
 
     from tactile_gan_torch.core.config import TrainConfig
@@ -231,7 +235,8 @@ def profile_train(reps: int, seed: int) -> Dict[str, object]:
     from tactile_gan_torch.train.step import build_train_step
 
     dev = torch.device("cuda")
-    cfg = TrainConfig()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = TrainConfig(gen=gen_name)
     cd = cfg.torch_compute_dtype
     gen = create_generator(cfg.gen, nf=cfg.nf, compute_dtype=cd)
     disc = create_discriminator("patch", nf=cfg.nf, compute_dtype=cd)
@@ -252,11 +257,14 @@ def profile_train(reps: int, seed: int) -> Dict[str, object]:
     tgt = torch.randint(0, 256, shape, generator=rng, device=dev,
                         dtype=torch.uint8)
     graphed = GraphedStep(step, state, rng)
-    res = {"batch": cfg.batch_size, "image_size": cfg.image_size,
-           "nf": cfg.nf}
+    res = {"gen": cfg.gen, "batch": cfg.batch_size,
+           "image_size": cfg.image_size, "nf": cfg.nf}
     res["graphed"] = profile_calls(
         lambda: graphed(src, tgt, apply_gp=True), reps, warmup=2)
     res["graphed"]["capture_s"] = graphed.captured[True].capture_s
+    # Peak device memory up to the graphed step's profile (state, graph
+    # pool and one eager step).
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     res["eager"] = profile_calls(
         lambda: step(state, src, tgt, apply_gp=True, generator=rng), reps,
         warmup=2)
@@ -268,6 +276,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 4])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--gen", default="UNet++",
+                    choices=["UNet++", "UNet", "BCDUNet"])
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of forwards")
     ap.add_argument("--out", default=None,
@@ -289,10 +299,10 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     results = []
     if args.train:
-        results.append(profile_train(args.reps, args.seed))
+        results.append(profile_train(args.reps, args.seed, args.gen))
         print(json.dumps(results[-1]), flush=True)
     else:
-        cfg = TrainConfig()
+        cfg = TrainConfig(gen=args.gen)
         gen = create_generator(cfg.gen, nf=cfg.nf,
                                compute_dtype=cfg.torch_compute_dtype)
         init_weights(gen, torch.Generator().manual_seed(args.seed))
@@ -301,7 +311,7 @@ def main(argv=None) -> int:
         for b in args.batch:
             x = torch.rand((b, cfg.image_size, cfg.image_size, 3), device=dev,
                            generator=rng) * 2 - 1
-            res = profile_forward(forward, x, args.reps)
+            res = {"gen": cfg.gen, **profile_forward(forward, x, args.reps)}
             results.append(res)
             print(json.dumps(res), flush=True)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
