@@ -117,7 +117,32 @@ Phases, each raising on failure (each prints its seconds):
      within graph_vs_eager's limits, where BCDUNet's conv biases that feed
      a non-affine norm (true gradient 0) are left out of the parameters and
      their gradients held below 1e-6 of the largest gradient of their
-     conv's weight in every run.
+     conv's weight in every run;
+ 10. variants: cli.train at nf 64, batch 4, 256x256 on 16 synthetic pairs,
+     graphed, for 2 epochs, once for each of --version 2 --lambda_per 1,
+     --loss ce, --loss w --no_label_smoothing, --loss hinge,
+     --legacy_label_cache, --disc_same_pad, --no-host_aug and
+     --space_to_depth, each with ms/step, img/s, peak memory and capture
+     seconds: exactly 30 A, 30 C, 9 B, 9 B-dx and 9 D launches a step (30,
+     30 and no B, B-dx or D under --space_to_depth, whose row 0 is 128
+     channels wide), finite losses, a perceptual loss above 0 (pan_loss
+     under version 2, the VGG term otherwise); the --space_to_depth folder served through cli.test
+     with its counts and its forward on the card against the CPU's;
+     four graphed steps against four eager ones for --version 2,
+     --no-host_aug and --space_to_depth within graph_vs_eager's limits; the
+     device augmentation on the card against the CPU on one uint8 batch
+     and injected draws (source within 1e-4, at most 0.1% of the mask off)
+     with a planted fault, the mask sampled bilinearly, that must break the
+     mask limit; A and C at the folded row's shapes (128x128x128 at nf 64,
+     128x128x64 at nf 32) against their plain versions, timed; at nf 32,
+     64x64, batch 2, two --space_to_depth steps with UNet++'s counts and B,
+     B-dx and D at every Cin of the folded 32x32x64 row against their plain
+     versions; cli.two_step_test over synthetic charts with their three
+     components (two seeded UNet++ nf 64 folders, stage 1 rgb, stage 2 ch)
+     with its counts, eval.txt and elm/; each stage and the chain on the
+     card against the CPU's at batch 1 (the chain in bf16 within twice
+     what bf16 compute moves it on the CPU, at least the serve limits);
+     cli.visualize_augmentation on the card over two training pairs.
 
 Then, not a gate, one call of kernel A and one of C are captured into a
 CUDA graph (torch.cuda.graph) and replayed; whether each captures is
@@ -1019,10 +1044,11 @@ def train_run(torch, ka, kb, kd, root, folder, args, extra=(),
     return trainer, counts, seconds, torch.cuda.max_memory_allocated()
 
 
-def run_summary(trainer, counts, seconds, peak):
-    """The numbers of one training run; the launch counts checked."""
+def run_summary(trainer, counts, seconds, peak, per=None):
+    """The numbers of one training run; the launch counts checked against
+    ``per`` a step (by default the generator's, ``per_step``)."""
     cfg, steps = trainer.cfg, trainer.state.step
-    want = {k: v * steps for k, v in per_step(cfg.gen).items()}
+    want = {k: v * steps for k, v in (per or per_step(cfg.gen)).items()}
     if counts != want:
         raise AssertionError(f"{cfg.folder_save}: training launches "
                              f"{counts}, expected {want} ({steps} steps)")
@@ -1418,17 +1444,13 @@ def gve_run(torch, args, cfg, batches, vgg, schedule, graphed,
     step a hook on G's Adam takes max|grad bias| / max|grad weight| (in a
     graphed run the eager first step and the last replay)."""
     from tactile_gan_torch.models.blocks import init_weights
-    from tactile_gan_torch.models.factory import (
-        create_discriminator, create_generator,
-    )
+    from tactile_gan_torch.models.factory import networks
     from tactile_gan_torch.train.graph import GraphedStep
     from tactile_gan_torch.train.state import TrainState, make_optimizer
     from tactile_gan_torch.train.step import build_train_step
 
     dev = torch.device("cuda")
-    cd = cfg.torch_compute_dtype
-    gen = create_generator(cfg.gen, nf=cfg.nf, compute_dtype=cd)
-    disc = create_discriminator("patch", nf=cfg.nf, compute_dtype=cd)
+    gen, disc = networks(cfg)
     init_weights(gen, torch.Generator().manual_seed(args.seed + 31))
     init_weights(disc, torch.Generator().manual_seed(args.seed + 32))
     gen.to(dev)
@@ -1701,6 +1723,31 @@ def other_norm_rows(torch, ka, gen_name, shapes, seed, record):
     return a_rows, c_rows, sums
 
 
+def card_vs_cpu(torch, label, forward_of, x, limits=None):
+    """A forward built by ``forward_of(compute, device)`` on the card
+    against the CPU at ``x`` (float32, batch 1), in bf16 and f32 compute,
+    within ``limits`` (compute -> (max, mean); by default the serve phase's
+    SERVE_TOL)."""
+    limits = {**SERVE_TOL, **(limits or {})}
+    out = []
+    for cd in ("bfloat16", "float32"):
+        got = forward_of(cd, "cuda")(x.cuda()).cpu()
+        want = forward_of(cd, "cpu")(x)
+        d = (got - want).abs()
+        max_tol, mean_tol = limits[cd]
+        res = {"compute": cd, "max_abs": d.max().item(),
+               "mean_abs": d.mean().item(), "max_tol": max_tol,
+               "mean_tol": mean_tol}
+        out.append(res)
+        print(f"{label} card vs CPU ({cd}): max|diff| {res['max_abs']:.3e} "
+              f"(tol {max_tol:.3g}), mean {res['mean_abs']:.3e} (tol "
+              f"{mean_tol:.3g})", flush=True)
+        if got.shape != tuple(x.shape[:3]) + (3,) or not (
+                res["max_abs"] <= max_tol and res["mean_abs"] <= mean_tol):
+            raise AssertionError(f"{label}: card and CPU disagree: {res}")
+    return out
+
+
 def train_serve_other(torch, ka, kb, kd, gen_name, args):
     """cli.train --gen ``gen_name`` on the card (graphed, two epochs,
     --checkpoint_interval 1) with its launch counts, artifacts and
@@ -1764,43 +1811,23 @@ def train_serve_other(torch, ka, kb, kd, gen_name, args):
               f"{serve}", flush=True)
 
         ckpt = os.path.join(model_dir, "final_model.pth")
-        x = torch.from_numpy(chart_pairs(1, FULL_RES, args.seed + 52)[0][0]
-                             [None])
-        out["card_vs_cpu"] = []
-        for cd in ("bfloat16", "float32"):
-            c = dataclasses.replace(cfg, compute_dtype=cd)
-            f_gpu, _ = runner.load_model(ckpt, c, device="cuda")
-            f_cpu, _ = runner.load_model(ckpt, c, device="cpu")
-            got = f_gpu(runner.normalize_u8(x.cuda())).cpu()
-            want = f_cpu(runner.normalize_u8(x))
-            d = (got - want).abs()
-            max_tol, mean_tol = SERVE_TOL[cd]
-            res = {"compute": cd, "max_abs": d.max().item(),
-                   "mean_abs": d.mean().item(), "max_tol": max_tol,
-                   "mean_tol": mean_tol}
-            out["card_vs_cpu"].append(res)
-            print(f"{gen_name} card vs CPU ({cd}): max|diff| "
-                  f"{res['max_abs']:.3e} (tol {max_tol}), mean "
-                  f"{res['mean_abs']:.3e} (tol {mean_tol})", flush=True)
-            if got.shape != (1, FULL_RES, FULL_RES, 3) or not (
-                    res["max_abs"] <= max_tol
-                    and res["mean_abs"] <= mean_tol):
-                raise AssertionError(f"{gen_name}: card and CPU disagree: "
-                                     f"{res}")
+        x = runner.normalize_u8(torch.from_numpy(
+            chart_pairs(1, FULL_RES, args.seed + 52)[0][0][None]))
+        out["card_vs_cpu"] = card_vs_cpu(
+            torch, gen_name, lambda cd, dev: runner.load_model(
+                ckpt, dataclasses.replace(cfg, compute_dtype=cd),
+                device=dev)[0], x)
     return out
 
 
-def gve_other(torch, args, gen_name):
-    """GVE_STEPS graphed steps of ``gen_name`` at the defaults against
-    eager ones from one state, batch sequence and generator seed, within
-    graph_vs_eager's limits (GVE_FACTOR times the eager-vs-eager floor, at
-    least GVE_MIN); the zero-gradient biases left out of the parameters and
-    their gradients held below ZERO_GRAD_SHARE in every run."""
-    from tactile_gan_torch.core.config import TrainConfig
-
-    cfg = TrainConfig(gen=gen_name)
+def gve_other(torch, args, cfg, label):
+    """GVE_STEPS graphed steps of ``cfg`` against eager ones from one state,
+    batch sequence and generator seed, within graph_vs_eager's limits
+    (GVE_FACTOR times the eager-vs-eager floor, at least GVE_MIN); the
+    zero-gradient biases left out of the parameters and their gradients
+    held below ZERO_GRAD_SHARE in every run."""
     batches, vgg, schedule = gve_inputs(torch, args, cfg)
-    watch = zero_grad_biases(gen_name)
+    watch = zero_grad_biases(cfg.gen)
     exclude = {b for b, _ in watch}
     torch.backends.cudnn.allow_tf32 = True
     try:
@@ -1826,14 +1853,14 @@ def gve_other(torch, args, gen_name):
     out = {"floor": floor, "limits": limits, "graphed": res,
            "zero_grad_biases": len(watch), "zero_grad_ratio": ratios,
            "zero_grad_share": ZERO_GRAD_SHARE}
-    print(f"{gen_name} graph vs eager, {GVE_STEPS} steps: floor {floor}; "
+    print(f"{label} graph vs eager, {GVE_STEPS} steps: floor {floor}; "
           f"limits {limits}; graphed {res}; zero-gradient biases "
           f"{len(watch)}, largest gradient share {ratios}", flush=True)
     if not all(res[k] <= limits[k] for k in limits):
-        raise AssertionError(f"{gen_name} graph vs eager: {res} outside "
+        raise AssertionError(f"{label} graph vs eager: {res} outside "
                              f"{limits}")
     if watch and not all(r[0] <= ZERO_GRAD_SHARE for r in ratios.values()):
-        raise AssertionError(f"{gen_name}: a zero-gradient bias's gradient "
+        raise AssertionError(f"{label}: a zero-gradient bias's gradient "
                              f"share {ratios} is above {ZERO_GRAD_SHARE}")
     return out
 
@@ -1843,6 +1870,8 @@ def phase_other_generators(torch, ka, kb, kd, args, record):
     shape; cli.train and evaluate_folder with exact launch counts (A and C
     each 28 a UNet step and 14 a BCDUNet step; no B, B-dx or D); the card's
     forward against the CPU's; graphed against eager steps."""
+    from tactile_gan_torch.core.config import TrainConfig
+
     out = {}
     for gen_name in OTHER_GENS:
         shapes = generator_norm_shapes(torch, gen_name)
@@ -1853,9 +1882,370 @@ def phase_other_generators(torch, ka, kb, kd, args, record):
                                                args.seed, record)
         res = {"kernel_a": a_rows, "kernel_c": c_rows, "step_sums": sums}
         res["train"] = train_serve_other(torch, ka, kb, kd, gen_name, args)
-        res["graph_vs_eager"] = gve_other(torch, args, gen_name)
+        res["graph_vs_eager"] = gve_other(
+            torch, args, TrainConfig(gen=gen_name), gen_name)
         out[gen_name] = res
     record["other_generators"] = out
+    return out
+
+
+# The variants (phase variants): train.py's flags that choose another
+# function, each trained at nf 64, batch 4, 256x256 on 16 synthetic pairs.
+VARIANT_RUNS = (
+    ("version2_pan", ("--version", "2", "--lambda_per", "1")),
+    ("loss_ce", ("--loss", "ce")),
+    ("loss_w", ("--loss", "w", "--no_label_smoothing")),
+    ("loss_hinge", ("--loss", "hinge")),
+    ("legacy_label_cache", ("--legacy_label_cache",)),
+    ("disc_same_pad", ("--disc_same_pad",)),
+    ("no_host_aug", ("--no-host_aug",)),
+    ("space_to_depth", ("--space_to_depth",)),
+)
+# Graphed against eager for these (TrainConfig fields).
+VARIANT_GVE = (("version2_pan", dict(version=2, lambda_per=1.0)),
+               ("no_host_aug", dict(host_aug=False)),
+               ("space_to_depth", dict(space_to_depth=True)))
+# The folded row 0 of --space_to_depth: (shape, launches a forward) of its
+# norms at nf 64 (the trained width) and nf 32, batch 4, 256x256.
+S2D_NORMS = {64: {((TRAIN_BATCH, 128, 128, 128), True): 10},
+             32: {((TRAIN_BATCH, 128, 128, 64), True): 10}}
+# --space_to_depth at nf 32, 64x64, batch 2: row 0 is 32x32x64, on B, B-dx
+# and D; (Cin, launches a step) of its kernel convs.
+S2D_NF32_SIZE, S2D_NF32_CINS = 64, ((64, 5), (128, 1), (192, 1), (256, 1),
+                                    (320, 1))
+# Device augmentation, card against CPU (tests/test_torch_augment.py's
+# limits against JAX): the source within 1e-4 on the [0, 1] scale; at most
+# 0.1% of the mask's values from another source pixel.
+AUG_SRC_MAX, AUG_MASK_SHARE = 1e-4, 1e-3
+TWO_STEP_PAIRS = 4
+
+
+def variant_per_step(name):
+    """Launches a step of a variant: UNet++'s, and no B, B-dx or D under
+    --space_to_depth at nf 64 (row 0 is 128 channels wide)."""
+    per = dict(PER_STEP)
+    if name == "space_to_depth":
+        per.update(conv3x3=0, conv3x3_dgrad=0, conv3x3_wgrad=0)
+    return per
+
+
+def mask_off(a, b):
+    """The share of mask values taken from another source pixel: off by
+    more than half a uint8 step."""
+    return ((a - b).abs() > 0.5 / 255.0).float().mean().item()
+
+
+def variants_augment(torch, args):
+    """preprocess_batch with augmentation on the card against the CPU on the
+    same uint8 batch and injected draws (two samples flipped, all four
+    warped), its time, and a planted fault that must break the mask limit:
+    the nearest mask sampled bilinearly."""
+    from tactile_gan_torch.data import augment
+
+    pairs = chart_pairs(TRAIN_BATCH, FULL_RES, args.seed + 60)
+    src, tgt = (torch.from_numpy(np.stack([p[k] for p in pairs]))
+                for k in (0, 1))
+    drawn = augment.draw_augment(TRAIN_BATCH, FULL_RES, FULL_RES,
+                                 torch.Generator().manual_seed(args.seed + 61),
+                                 "cpu")
+    draws = augment.AugmentDraws(
+        torch.tensor([True, False] * (TRAIN_BATCH // 2)),
+        torch.ones(TRAIN_BATCH, dtype=torch.bool), drawn.matrix)
+    want = augment.preprocess_batch(src, tgt, augment=True, draws=draws)
+    dsrc, dtgt = src.cuda(), tgt.cuda()
+    ddraws = augment.AugmentDraws(*(t.cuda() for t in draws))
+
+    def card():
+        return augment.preprocess_batch(dsrc, dtgt, augment=True,
+                                        draws=ddraws)
+
+    got = [t.cpu() for t in card()]
+    res = {"src_max": ((got[0] - want[0]).abs() / 2).max().item(),
+           "mask_off": mask_off(got[1], want[1]),
+           "limits": {"src_max": AUG_SRC_MAX, "mask_off": AUG_MASK_SHARE}}
+    res["ms"], res["call_ms"] = cuda_ms(card)
+    warp = augment.warp
+    augment.warp = lambda img, m, *, nearest: warp(img, m, nearest=False)
+    try:
+        faulty = card()[1].cpu()
+    finally:
+        augment.warp = warp
+    res["fault_mask_bilinear"] = mask_off(faulty, want[1])
+    print(f"device augmentation, card vs CPU at batch {TRAIN_BATCH}, "
+          f"{FULL_RES}^2: source max|diff| {res['src_max']:.3e} (limit "
+          f"{AUG_SRC_MAX}), mask off {res['mask_off']:.3e} (limit "
+          f"{AUG_MASK_SHARE}); {res['ms']:.4f} ms a batch (call "
+          f"{res['call_ms']:.4f}); planted fault, mask sampled bilinearly: "
+          f"mask off {res['fault_mask_bilinear']:.3e}", flush=True)
+    if not (res["src_max"] <= AUG_SRC_MAX
+            and res["mask_off"] <= AUG_MASK_SHARE):
+        raise AssertionError(f"device augmentation: card and CPU disagree: "
+                             f"{res}")
+    if res["fault_mask_bilinear"] <= AUG_MASK_SHARE:
+        raise AssertionError(f"device augmentation: the planted fault was "
+                             f"not caught: {res}")
+    return res
+
+
+def variants_serve_s2d(torch, ka, kb, kd, args, root):
+    """The trained --space_to_depth folder through cli.test (A only: 30 a
+    forward), and its forward on the card against the CPU's."""
+    from tactile_gan_torch.cli import test as test_cli
+    from tactile_gan_torch.core.config import TrainConfig
+    from tactile_gan_torch.eval import runner
+
+    reset_counts(ka, kb, kd)
+    metrics = test_cli.main(["--folder", "space_to_depth", "--work_root",
+                             root, "--eval_batch", str(TRAIN_BATCH)])
+    torch.cuda.synchronize()
+    serve = launch_counts(ka, kb, kd)
+    want = {k: 0 for k in serve}
+    want["instance_norm_act"] = A_PER_FORWARD * (OTHER_TEST_PAIRS
+                                                 // TRAIN_BATCH)
+    if serve != want or not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"--space_to_depth: serving launches {serve}, "
+                             f"expected {want}; metrics {metrics}")
+    print(f"--space_to_depth: served the trained folder: {metrics}; "
+          f"launches {serve}", flush=True)
+    model_dir = os.path.join(root, "models", "space_to_depth")
+    cfg = TrainConfig.from_params_file(os.path.join(model_dir, "params.txt"))
+    ckpt = os.path.join(model_dir, "final_model.pth")
+    x = runner.normalize_u8(torch.from_numpy(
+        chart_pairs(1, FULL_RES, args.seed + 62)[0][0][None]))
+    return {"serve_launches": serve, "serve_metrics": metrics,
+            "card_vs_cpu": card_vs_cpu(
+                torch, "--space_to_depth", lambda cd, dev: runner.load_model(
+                    ckpt, dataclasses.replace(cfg, compute_dtype=cd),
+                    device=dev)[0], x)}
+
+
+def variants_nf32(torch, ka, kb, kd, args):
+    """--space_to_depth at nf 32, 64x64, batch 2: one epoch of two steps
+    through cli.train with UNet++'s counts a step (row 0, 32x32x64, on B,
+    B-dx and D), then B, B-dx and D against their plain versions at every
+    Cin of that row."""
+    from tactile_gan_torch.cli import train as train_cli
+
+    with tempfile.TemporaryDirectory() as root:
+        write_pairs(root, "train", chart_pairs(2 * NF_BATCH, S2D_NF32_SIZE,
+                                               args.seed + 63))
+        reset_counts(ka, kb, kd)
+        trainer = train_cli.main([
+            "--data", os.path.join(root, "data"), "--nf", "32",
+            "--image_size", str(S2D_NF32_SIZE), "--batch_size",
+            str(NF_BATCH), "--total_epochs", "1", "--epoch_constant", "1",
+            "--space_to_depth", "--folder_save", "s2d_nf32", "--seed",
+            str(args.seed)])
+        torch.cuda.synchronize()
+        counts = launch_counts(ka, kb, kd)
+    want = {k: v * trainer.state.step for k, v in PER_STEP.items()}
+    losses = [v for k in ("gen", "disc", "l1", "gp", "per")
+              for v in getattr(trainer, f"{k}_loss")]
+    if counts != want or trainer.state.step != 2 or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"--space_to_depth nf 32: launches {counts}, "
+                             f"expected {want}; losses {losses}")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 64)
+    cd, hw = torch.bfloat16, S2D_NF32_SIZE // 2
+    rows = []
+    for cin, per in S2D_NF32_CINS:
+        x = torch.randn((NF_BATCH, hw, hw, cin), device="cuda", generator=gen)
+        g = torch.randn((NF_BATCH, hw, hw, 64), device="cuda", generator=gen)
+        wt = 0.05 * torch.randn((64, cin, 3, 3), device="cuda", generator=gen)
+        y = kb.conv3x3(x, wt, compute_dtype=cd)
+        dx = kb.dgrad_kernel(g, wt, cd)
+        dk = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
+        torch.cuda.synchronize()
+        label = f"--space_to_depth nf 32 row 0 cin {cin}"
+        row = {"shape": list(x.shape), "co": 64, "per_step": per,
+               "b": check_close(f"B {label}", y, kb.conv3x3_plain(
+                   x, wt, compute_dtype=cd), "float32"),
+               "b_dx": check_close(f"B-dx {label}", dx,
+                                   kb.conv3x3_dgrad_plain(
+                                       g, wt, compute_dtype=cd), "float32"),
+               "d": check_share(f"D {label}", dk, kd.conv3x3_wgrad_plain(
+                   x, g, compute_dtype=cd))}
+        rows.append(row)
+        print(f"{label}: max|diff| B {row['b']:.3e} B-dx {row['b_dx']:.3e} "
+              f"D {row['d']:.3e}", flush=True)
+    print(f"--space_to_depth nf 32: 2 steps, launches {counts}", flush=True)
+    return {"launches": counts, "losses": losses, "rows": rows}
+
+
+def chart_components(n, size, seed):
+    """Synthetic charts with their three tactile components: (source, axes,
+    grids, content), the axes, the bars and the polyline each black on
+    white (the source as ``chart_pairs`` draws it)."""
+    out = []
+    for src, tac in chart_pairs(n, size, seed):
+        axes = np.full((size, size), 255, np.uint8)
+        base, left = size - 20, 20
+        axes[base:base + 2, left:size - 10] = 0
+        axes[10:base + 2, left:left + 2] = 0
+        stroke = tac.min(axis=-1) == 0
+        coloured = (src != 255).any(axis=-1) & ~(axes == 0)
+        line = (src == (200, 30, 30)).all(axis=-1)
+        grids = np.where(coloured & ~line & stroke, 0, 255).astype(np.uint8)
+        content = np.where(line, 0, 255).astype(np.uint8)
+        out.append((src, axes, grids, content))
+    return out
+
+
+def variants_two_step(torch, ka, kb, kd, args):
+    """cli.two_step_test on the card: two seeded UNet++ nf 64 folders
+    (stage 1 rgb, stage 2 ch) over synthetic charts with their three
+    components; its launch counts, eval.txt and elm/; each stage and the
+    chain on the card against the CPU's at batch 1."""
+    from PIL import Image
+
+    from tactile_gan_torch.cli import two_step_test
+    from tactile_gan_torch.core.config import TrainConfig
+    from tactile_gan_torch.eval import runner
+    from tactile_gan_torch.models.blocks import init_weights
+    from tactile_gan_torch.models.unet_plusplus import UNetPlusPlus
+    from tactile_gan_torch.utils.checkpoint import save_checkpoint
+
+    charts = chart_components(TWO_STEP_PAIRS, FULL_RES, args.seed + 65)
+    with tempfile.TemporaryDirectory() as root:
+        src_dir = os.path.join(root, "charts", "test", "source")
+        tac_dir = os.path.join(root, "charts", "test", "tactile")
+        os.makedirs(src_dir)
+        os.makedirs(tac_dir)
+        for i, (src, *comps) in enumerate(charts):
+            Image.fromarray(src).save(os.path.join(src_dir, f"s_{i:04d}.png"))
+            for name, comp in zip(("axes", "grids", "content"), comps):
+                Image.fromarray(comp).save(
+                    os.path.join(tac_dir, f"t_{i:04d}_{name}.tiff"))
+        cfgs = {}
+        for k, (folder, target) in enumerate((("s1", "rgb"), ("s2", "ch"))):
+            cfg = TrainConfig(data="charts", target=target,
+                              folder_save=folder, folder_load=folder)
+            model_dir = os.path.join(root, "models", folder)
+            os.makedirs(model_dir)
+            cfg.save_params(model_dir)
+            gen = UNetPlusPlus(nf=cfg.nf)
+            init_weights(gen, torch.Generator().manual_seed(args.seed + 66
+                                                            + k))
+            save_checkpoint(os.path.join(model_dir, "final_model.pth"),
+                            gen=gen.state_dict())
+            cfgs[folder] = cfg
+        reset_counts(ka, kb, kd)
+        t0 = time.perf_counter()
+        accuracy, dice, jaccard = two_step_test.main([
+            "--s1_dir", "s1", "--s2_dir", "s2", "--data", "charts",
+            "--work_root", root])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts(ka, kb, kd)
+        want = {k: 0 for k in counts}
+        want["instance_norm_act"] = 2 * A_PER_FORWARD * TWO_STEP_PAIRS
+        want["conv3x3"] = 2 * B_PER_FORWARD * TWO_STEP_PAIRS
+        out_dir = os.path.join(root, "Outputs", "s1+s2_charts")
+        elm = sorted(os.listdir(os.path.join(out_dir, "elm")))
+        metrics = {"accuracy": float(np.mean(accuracy)),
+                   "dice": float(np.mean(dice)),
+                   "jaccard": float(np.mean(jaccard))}
+        print(f"two-step eval: {TWO_STEP_PAIRS} charts in {seconds:.2f} s; "
+              f"{metrics}; launches {counts}; elm/ {elm}", flush=True)
+        if counts != want or len(elm) != TWO_STEP_PAIRS or not (
+                os.path.exists(os.path.join(out_dir, "eval.txt"))) or not all(
+                math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"two-step eval: launches {counts}, "
+                                 f"expected {want}; elm/ {elm}; {metrics}")
+
+        def stage(folder):
+            return lambda cd, dev: runner.load_model(
+                os.path.join(root, "models", folder, "final_model.pth"),
+                dataclasses.replace(cfgs[folder], compute_dtype=cd),
+                device=dev)[0]
+
+        def chain(cd, dev):
+            return runner.ChainedForward(stage("s1")(cd, dev),
+                                         stage("s2")(cd, dev))
+
+        # Each stage alone within the serve phase's limits (stage 2 on the
+        # CPU's stage-1 output); the chain in float32 within them too. In
+        # bf16 stage 2 instance-normalizes stage 1's nearly flat output and
+        # so magnifies any rounding: the chain's limit is at least twice
+        # what bf16 compute alone moves it on the CPU (bf16 against f32).
+        x = runner.normalize_u8(torch.from_numpy(charts[0][0][None]))
+        out = {"seconds": seconds, "launches": counts, "metrics": metrics,
+               "stage1": card_vs_cpu(torch, "two-step stage 1", stage("s1"),
+                                     x)}
+        mid = stage("s1")("bfloat16", "cpu")(x)
+        out["stage2"] = card_vs_cpu(torch, "two-step stage 2", stage("s2"),
+                                    mid)
+        d = (chain("bfloat16", "cpu")(x) - chain("float32", "cpu")(x)).abs()
+        out["bf16_floor"] = {"max_abs": d.max().item(),
+                             "mean_abs": d.mean().item()}
+        lim = SERVE_TOL["bfloat16"]
+        print(f"two-step chain, bf16 against f32 on the CPU: "
+              f"{out['bf16_floor']}", flush=True)
+        out["chain"] = card_vs_cpu(torch, "two-step chain", chain, x, {
+            "bfloat16": (max(lim[0], 2 * out["bf16_floor"]["max_abs"]),
+                         max(lim[1], 2 * out["bf16_floor"]["mean_abs"]))})
+        return out
+
+
+def phase_variants(torch, ka, kb, kd, args, record):
+    """train.py's variants at nf 64, batch 4, 256x256 through cli.train,
+    graphed, each with its exact launch counts; graphed against eager for
+    --version 2, --no-host_aug and --space_to_depth; the device augmentation
+    card against CPU with a planted fault; the --space_to_depth folder
+    served, its folded row's A and C against their plain versions (nf 64
+    and 32), and at nf 32, 64x64 its B, B-dx and D; the augmentation
+    preview; two-step eval. A gate."""
+    from tactile_gan_torch.cli import visualize_augmentation as vis_cli
+    from tactile_gan_torch.core.config import TrainConfig
+
+    card = card_line()
+    out = {"card": card, "train": {}}
+    with tempfile.TemporaryDirectory() as root:
+        write_pairs(root, "train", chart_pairs(OTHER_PAIRS, FULL_RES,
+                                               args.seed + 67))
+        write_pairs(root, "test", chart_pairs(OTHER_TEST_PAIRS, FULL_RES,
+                                              args.seed + 68))
+        for name, flags in VARIANT_RUNS:
+            trainer, *run = train_run(torch, ka, kb, kd, root, name, args,
+                                      flags)
+            r = run_summary(trainer, *run, per=variant_per_step(name))
+            r["flags"] = list(flags)
+            if sorted(trainer.graphed.captured) != [True]:
+                raise AssertionError(f"{name}: captured GP variants "
+                                     f"{sorted(trainer.graphed.captured)}")
+            # Every run keeps --lambda_per 1: the VGG term, or pan_loss
+            # under version 2.
+            if not min(r["losses"]["per"]) > 0:
+                raise AssertionError(f"{name}: perceptual losses "
+                                     f"{r['losses']['per']}")
+            out["train"][name] = r
+            print_run(f"variant {name} ({' '.join(flags)}; {card})", r)
+            del trainer
+        out["serve_s2d"] = variants_serve_s2d(torch, ka, kb, kd, args, root)
+        # The augmentation preview, on the card by default.
+        vis_dir = os.path.join(root, "augmentation_vis")
+        vis_cli.main(["--data_dir", os.path.join(root, "data", "train",
+                                                 "source"),
+                      "--output_dir", vis_dir, "--num_samples", "2",
+                      "--target_mode", "rgb"])
+        out["visualize_augmentation"] = sorted(os.listdir(vis_dir))
+        if len(out["visualize_augmentation"]) != 8:
+            raise AssertionError(f"visualize_augmentation wrote "
+                                 f"{out['visualize_augmentation']}")
+    out["graph_vs_eager"] = {
+        name: gve_other(torch, args, TrainConfig(**fields), name)
+        for name, fields in VARIANT_GVE}
+    out["augment"] = variants_augment(torch, args)
+    out["s2d_norms"] = {}
+    for nf, shapes in S2D_NORMS.items():
+        a_rows, c_rows, sums = other_norm_rows(
+            torch, ka, f"UNet++ --space_to_depth nf {nf}", shapes, args.seed,
+            record)
+        out["s2d_norms"][nf] = {"kernel_a": a_rows, "kernel_c": c_rows,
+                                "step_sums": sums}
+    out["s2d_nf32"] = variants_nf32(torch, ka, kb, kd, args)
+    out["two_step"] = variants_two_step(torch, ka, kb, kd, args)
+    record["variants"] = out
     return out
 
 
@@ -2237,6 +2627,8 @@ def main() -> int:
           record)
     other = timed("other_generators", phase_other_generators, torch, ka, kb,
                   kd, args, record)
+    variants = timed("variants", phase_variants, torch, ka, kb, kd, args,
+                     record)
 
     # Launches over the main paths: the training run, the trained folder
     # served, and the serving runs; kernel E's in the conv probe.
@@ -2252,6 +2644,13 @@ def main() -> int:
         for k in launches:
             launches[k] += (res["train"]["launches"][k]
                             + res["train"]["serve_launches"][k])
+    # The variants' training runs, the served --space_to_depth folder and
+    # the two-step eval.
+    for k in launches:
+        launches[k] += (sum(r["launches"][k]
+                            for r in variants["train"].values())
+                        + variants["serve_s2d"]["serve_launches"][k]
+                        + variants["two_step"]["launches"][k])
     fwd = serving_rows(TRAIN_BATCH)
     a_step = [r for r in a_rows if fwd(r)]
     b_step = [r for r in b_rows if fwd(r)]

@@ -11,7 +11,7 @@ step's losses (not each operation, as ``jax_debug_nans`` does). Flags that
 only choose a TPU layout or kernel of the same function (``--use_pallas``,
 ``--lane_pack``, the mesh sizes, ...) are accepted and ignored with a
 one-line note; flags that choose another function the port does not build
-yet are refused by the trainer.
+yet (``--ckpt_backend orbax``) are refused by the trainer.
 """
 
 from __future__ import annotations
@@ -72,8 +72,6 @@ class TrainConfig:
     mesh_data: int = 0
     mesh_model: int = 1
     legacy_label_cache: bool = False
-    # A network variant of the JAX package that the port does not build yet;
-    # read so that load_model and the trainer can refuse it.
     space_to_depth: bool = False
     lane_pack: Optional[bool] = None
     bf16_resident: Optional[bool] = None
@@ -204,19 +202,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="local .npz of pretrained VGG16 feature weights for "
                         "perceptual loss v1 (random-feature fallback if empty)")
     p.add_argument("--space_to_depth", default=False, action="store_true",
-                   help="UNet++ variant of the JAX package (not ported)")
+                   help="UNet++ variant: row 0 runs 2x2-folded (H/2 x W/2 x 2nf)")
     p.add_argument("--legacy_label_cache", default=False, action="store_true",
-                   help="reference-exact cached label noise (not ported)")
+                   help="reference-exact cached label noise: one draw reused by "
+                        "every step of the run")
     p.add_argument("--host_aug", default=True,
                    action=argparse.BooleanOptionalAction,
                    help="flip/affine augmentation in the host decode pool "
-                        "(the port's only augmentation path)")
+                        "(--no-host_aug: on the device, inside the step)")
     p.add_argument("--cache_decoded", default=True,
                    action=argparse.BooleanOptionalAction,
                    help="RAM-cache decoded images across epochs")
     p.add_argument("--disc_same_pad", default=False,
                    action=argparse.BooleanOptionalAction,
-                   help="SAME-padding discriminator variant (not ported)")
+                   help="SAME-padding discriminator variant")
     p.add_argument("--ckpt_backend", default="native",
                    choices=["native", "orbax"],
                    help="periodic-checkpoint backend (orbax is not ported)")

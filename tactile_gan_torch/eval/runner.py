@@ -13,6 +13,9 @@ uint8 quantize (float64, bit-exact with the host writers' ``_u8``) and the
 four fuzzy-metric sums (float64). Host work is pipelined: a decode pool, a
 one-worker staging pool that uploads batch k+1 while batch k runs, a
 one-worker device-to-host drain, and a pool of PNG writers.
+
+``test_two_step`` runs two loaded generators chained (``ChainedForward``)
+through the same loop, as ``two_step_test.py`` does.
 """
 
 from __future__ import annotations
@@ -69,14 +72,12 @@ def load_model(model_path: str, cfg: TrainConfig,
     names are converted, so a miss means a conversion that found nothing).
     """
     dev = resolve_device(device)
-    if cfg.space_to_depth:
-        raise NotImplementedError(
-            "the --space_to_depth UNet++ variant is not ported yet")
     act = True if activation is None else activation
     gen = create_generator(cfg.gen, input_dim=cfg.input_dim,
                            output_dim=cfg.output_dim, nf=cfg.nf,
                            activation=act,
-                           compute_dtype=cfg.torch_compute_dtype)
+                           compute_dtype=cfg.torch_compute_dtype,
+                           space_to_depth=cfg.space_to_depth)
     init_weights(gen, torch.Generator().manual_seed(0))
     missing = gen.load_state_dict(load_checkpoint(model_path)["gen"],
                                   strict=False).missing_keys
@@ -86,6 +87,23 @@ def load_model(model_path: str, cfg: TrainConfig,
                        f"{missing[:4]}")
     gen.to(dev).eval()
     return GeneratorForward(gen, dev), gen
+
+
+class ChainedForward:
+    """Two loaded generators chained, stage 2 on stage 1's output as it
+    comes (Tanh, [-1, 1]): the reference's two-step inference. Both must
+    lie on one device."""
+
+    def __init__(self, forward1: GeneratorForward,
+                 forward2: GeneratorForward):
+        if forward1.device != forward2.device:
+            raise ValueError(f"the two stages lie on {forward1.device} and "
+                             f"{forward2.device}; load both on one device")
+        self.forward1, self.forward2 = forward1, forward2
+        self.device = forward1.device
+
+    def __call__(self, src_f32: torch.Tensor) -> torch.Tensor:
+        return self.forward2(self.forward1(src_f32))
 
 
 def load_arrays(path: str) -> dict:
@@ -227,6 +245,25 @@ def test_model(forward: GeneratorForward, dataset, output_path: str,
     return accuracy, dice, jaccard
 
 
+def test_two_step(forward1: GeneratorForward, forward2: GeneratorForward,
+                  dataset, output_path: str, evaluation: bool = True,
+                  eval_batch: int = 1, threads: int = 4, transfer: str = "u8"
+                  ) -> Tuple[List[float], List[float], List[float]]:
+    """``test_model`` on the chained generators, written channel-wise
+    (``target_mode="ch"``: out/, sgt/ and elm/)."""
+    return test_model(ChainedForward(forward1, forward2), dataset,
+                      output_path, evaluation=evaluation, target_mode="ch",
+                      eval_batch=eval_batch, threads=threads,
+                      transfer=transfer)
+
+
+def report_evaluation(accuracy, dice, jaccard, output_path: str) -> None:
+    """eval.txt and the printed means, with the distribution plots where
+    matplotlib is installed."""
+    report = print_evaluation if can_plot() else write_evaluation
+    report(accuracy, dice, jaccard, output_path)
+
+
 def evaluate_folder(folder: str, work_root: str = ".",
                     data_override: Optional[str] = None,
                     eval_batch: int = 1, transfer: str = "u8",
@@ -270,8 +307,7 @@ def evaluate_folder(folder: str, work_root: str = ".",
         target_mode=cfg.target, eval_batch=eval_batch,
         threads=max(1, min(cfg.threads, 8)), transfer=transfer)
     if accuracy:
-        report = print_evaluation if plots else write_evaluation
-        report(accuracy, dice, jaccard, output_path)
+        report_evaluation(accuracy, dice, jaccard, output_path)
         return {"accuracy": float(np.mean(accuracy)),
                 "dice": float(np.mean(dice)),
                 "jaccard": float(np.mean(jaccard))}

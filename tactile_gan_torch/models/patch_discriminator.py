@@ -1,12 +1,13 @@
 """Conditional PatchGAN discriminator (``tactile_gan_tpu/models/
-patch_discriminator.py``, the default valid-padding network).
+patch_discriminator.py``): by default the valid-padding network.
 
 The source and the (real or generated) tactile image are concatenated on
 channels and pushed through four 3x3 valid-padding conv blocks (6 -> nf s2
 biased and un-normalized, nf -> 2nf s2, 2nf -> 4nf s1, 4nf -> 8nf s1; each
 but the first instance-normalized, every one LeakyReLU(0.2)) and a 3x3
 valid conv to one logit channel, with an optional sigmoid. A 256^2 input
-gives a 57^2 patch map.
+gives a 57^2 patch map. ``same_pad`` (``--disc_same_pad``) pads every conv
+by 1: the same parameters, a 64^2 patch map at 256^2.
 
 The gradient penalty differentiates D twice, so D runs on autograd-native
 ops only: the library conv (``ops/conv.py``) and the plain instance norm
@@ -39,29 +40,32 @@ class PatchDiscriminator(nn.Module):
 
     def __init__(self, input_dim: int = 3, output_dim: int = 3, nf: int = 64,
                  activation: bool = True,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 same_pad: bool = False):
         super().__init__()
         self.activation = activation
         self.compute_dtype = compute_dtype
         cin = input_dim + output_dim
+        p = 1 if same_pad else 0
         self.model = nn.Sequential(
-            nn.Conv2d(cin, nf, 3, stride=2, bias=True),          # 0
+            nn.Conv2d(cin, nf, 3, 2, p, bias=True),               # 0
             nn.LeakyReLU(SLOPE),                                  # 1
-            nn.Conv2d(nf, 2 * nf, 3, stride=2, bias=False),       # 2
+            nn.Conv2d(nf, 2 * nf, 3, 2, p, bias=False),           # 2
             nn.InstanceNorm2d(2 * nf, affine=True),               # 3
             nn.LeakyReLU(SLOPE),                                  # 4
-            nn.Conv2d(2 * nf, 4 * nf, 3, stride=1, bias=False),   # 5
+            nn.Conv2d(2 * nf, 4 * nf, 3, 1, p, bias=False),       # 5
             nn.InstanceNorm2d(4 * nf, affine=True),               # 6
             nn.LeakyReLU(SLOPE),                                  # 7
-            nn.Conv2d(4 * nf, 8 * nf, 3, stride=1, bias=False),   # 8
+            nn.Conv2d(4 * nf, 8 * nf, 3, 1, p, bias=False),       # 8
             nn.InstanceNorm2d(8 * nf, affine=True),               # 9
             nn.LeakyReLU(SLOPE),                                  # 10
-            nn.Conv2d(8 * nf, 1, 3, stride=1, bias=True),         # 11
+            nn.Conv2d(8 * nf, 1, 3, 1, p, bias=True),             # 11
         )
 
     def _conv(self, x: torch.Tensor, i: int) -> torch.Tensor:
         conv = self.model[i]
-        return conv2d(x, conv.weight, stride=conv.stride[0], padding=0,
+        return conv2d(x, conv.weight, stride=conv.stride[0],
+                      padding=conv.padding[0],
                       bias=conv.bias, compute_dtype=self.compute_dtype)
 
     def forward(self, img_a: torch.Tensor, img_b: torch.Tensor

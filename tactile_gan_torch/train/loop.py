@@ -17,12 +17,10 @@ after the first step whose losses are not finite (the JAX package also
 turns on ``jax_debug_nans``, which raises inside the step at the first
 non-finite operation; the port has no such per-operation check), and
 ``--profile_dir`` traces the first epoch, graph replays included, as in the
-JAX package.
+JAX package. With ``--no-host_aug`` the dataset yields batches as decoded
+and the step augments them on the device (``data/augment.py``).
 
-Left out for now (the trainer refuses them): the orbax checkpoint backend,
-the device-side augmentation of ``--no-host_aug``, the version-2 perceptual
-loss and the network variants ``--space_to_depth`` and ``--disc_same_pad``,
-``--legacy_label_cache``.
+Left out for now (the trainer refuses it): the orbax checkpoint backend.
 """
 
 from __future__ import annotations
@@ -39,7 +37,7 @@ from tactile_gan_torch.core.device import resolve_device
 from tactile_gan_torch.data.dataset import PairedDataset
 from tactile_gan_torch.data.prefetch import Prefetcher
 from tactile_gan_torch.models.blocks import init_weights
-from tactile_gan_torch.models.factory import create_discriminator, create_generator
+from tactile_gan_torch.models.factory import networks
 from tactile_gan_torch.models.vgg import (
     fallback_banner, load_vgg_features, resolve_weights_path,
 )
@@ -58,18 +56,9 @@ from tactile_gan_torch.utils.profiling import nan_guard, trace
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
-    unported = {
-        "--space_to_depth": cfg.space_to_depth,
-        "--disc_same_pad": cfg.disc_same_pad,
-        "--legacy_label_cache": cfg.legacy_label_cache,
-        "--ckpt_backend orbax": cfg.ckpt_backend != "native",
-        "--no-host_aug (device-side augmentation)":
-            not cfg.host_aug and not cfg.no_aug,
-    }
-    named = [k for k, v in unported.items() if v]
-    if named:
+    if cfg.ckpt_backend != "native":
         raise NotImplementedError(
-            f"not ported yet: {', '.join(named)} (ROADMAP.md, queue 1)")
+            "not ported yet: --ckpt_backend orbax (ROADMAP.md, queue 1)")
 
 
 def _restore_optimizer(opt: torch.optim.Adam, model: torch.nn.Module,
@@ -94,15 +83,7 @@ class Trainer:
         self.cfg = cfg
         self.dataset = dataset
         self.device = resolve_device(cfg.device)
-        cd = cfg.torch_compute_dtype
-        self.gen = create_generator(cfg.gen, input_dim=cfg.input_dim,
-                                    output_dim=cfg.output_dim, nf=cfg.nf,
-                                    activation=cfg.activation,
-                                    compute_dtype=cd)
-        self.disc = create_discriminator("patch", input_dim=cfg.input_dim,
-                                         output_dim=cfg.output_dim, nf=cfg.nf,
-                                         activation=cfg.activation,
-                                         compute_dtype=cd)
+        self.gen, self.disc = networks(cfg)
         init_weights(self.gen, torch.Generator().manual_seed(cfg.seed))
         init_weights(self.disc, torch.Generator().manual_seed(cfg.seed + 1))
 

@@ -1,41 +1,46 @@
 """One G+D training step, in the order of ``tactile_gan_tpu/train/step.py``:
 
-1. normalize the uint8 batch: source to [-1, 1], target to [0, 1] (host
-   augmentation, when on, already ran in the data pipeline);
+1. preprocess the uint8 batch (``data/augment.py``): with ``--no-host_aug``
+   (and augmentation on) the joint flip and affine run here on the device;
+   then source to [-1, 1], target to [0, 1];
 2. run the generator forward once; the D step takes its output detached,
    the G step differentiates through the same graph;
 3. D on the stacked (fake, real) pair, the gradient penalty when this epoch
    applies it (a separate B-row D forward, differentiated twice), then the
    D Adam update;
-4. score G against the *updated* D: the GAN loss, L1 and the v1 perceptual
+4. score G against the *updated* D: the GAN loss, L1 and the perceptual
    loss, then the G Adam update (gradients taken over G's parameters only,
-   so no D weight gradient is computed or left behind).
+   so no D weight gradient is computed or left behind). Version 1 compares
+   VGG features; version 2 (``pan_loss``) runs that D forward on the
+   stacked (fake, real) pair and compares its four feature maps, both sets
+   detached, so the term is logged and gives G no gradient.
 
-One label-smoothing draw is shared by the D-real and G targets. The draws
-(label noise, the GP's alpha) come from ``generator`` unless the caller
-injects them (``label_noise``, ``gp_alpha``), as the tests do with the JAX
-step's own draws. Losses come back as one float32 tensor on the device:
-[loss_d, loss_g (the GAN term), loss_l1, loss_gp, loss_per].
+One label-smoothing draw is shared by the D-real and G targets; with
+``--legacy_label_cache`` one draw a prediction shape, kept on the step, is
+reused by every step of the run (the reference's cached tensor). The draws
+(augmentation, label noise, the GP's alpha) come from ``generator`` unless
+the caller injects them (``aug_draws``, ``label_noise``, ``gp_alpha``), as
+the tests do with the JAX step's own draws. Losses come back as one
+float32 tensor on the device: [loss_d, loss_g (the GAN term), loss_l1,
+loss_gp, loss_per].
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from tactile_gan_torch.core.config import TrainConfig
+from tactile_gan_torch.data.augment import AugmentDraws, preprocess_batch
 from tactile_gan_torch.losses.gan_loss import gan_loss
 from tactile_gan_torch.losses.gradient_penalty import gradient_penalty
-from tactile_gan_torch.losses.perceptual import l1_loss, vgg_perceptual_loss
+from tactile_gan_torch.losses.perceptual import (
+    l1_loss, pan_loss, vgg_perceptual_loss,
+)
 from tactile_gan_torch.train.state import TrainState, set_lr
 
 METRICS = ("loss_d", "loss_g", "loss_l1", "loss_gp", "loss_per")
-
-
-def preprocess(src_u8: torch.Tensor, tgt_u8: torch.Tensor):
-    """uint8 NHWC -> (source in [-1, 1], target in [0, 1]) float32."""
-    return src_u8.float() / 255.0 * 2.0 - 1.0, tgt_u8.float() / 255.0
 
 
 def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
@@ -47,7 +52,8 @@ def _apply(opt: torch.optim.Optimizer, params, grads) -> None:
 
 class TrainStep:
     """``step(state, src_u8, tgt_u8, *, apply_gp, generator=None,
-    label_noise=None, gp_alpha=None)`` -> the five losses (device tensor):
+    aug_draws=None, label_noise=None, gp_alpha=None)`` -> the five losses
+    (device tensor):
     ``set_lr`` (the schedule's rate at ``state.step``, set outside any
     captured region), then ``compute`` (the step's device work, which moves
     no Python counter), then ``state.step += 1``. ``train/graph.py``
@@ -55,30 +61,47 @@ class TrainStep:
 
     def __init__(self, cfg: TrainConfig, schedule: Callable[[int], float],
                  vgg_params: Optional[Dict[str, torch.Tensor]] = None):
-        if cfg.lambda_per != 0 and cfg.version != 1:
-            raise NotImplementedError(
-                "the version-2 perceptual loss (pan_loss) is not ported yet "
-                "(ROADMAP.md, queue 1, 'Variants')")
-        if cfg.lambda_per != 0 and vgg_params is None:
+        if cfg.lambda_per != 0 and cfg.version == 1 and vgg_params is None:
             raise ValueError("the v1 perceptual loss needs the VGG tower")
         self.cfg = cfg
         self.schedule = schedule
         self.vgg_params = vgg_params
+        # With --host_aug the flip and affine already ran on the host.
+        self.augment = not cfg.no_aug and not cfg.host_aug
+        # --legacy_label_cache: prediction shape -> the run's one draw.
+        self.label_cache: Dict[Tuple[int, ...], torch.Tensor] = {}
 
     def set_lr(self, state: TrainState) -> None:
         lr = self.schedule(state.step)
         set_lr(state.opt_d, lr)
         set_lr(state.opt_g, lr)
 
+    def _label_noise(self, shape, device, generator, injected):
+        """The step's standard-normal label draw: the injected one, or one
+        from ``generator``; under --legacy_label_cache the first of these
+        for ``shape`` is kept and every later step reuses it."""
+        key = tuple(shape)
+        if self.cfg.legacy_label_cache and key in self.label_cache:
+            return self.label_cache[key]
+        noise = (injected.to(device) if injected is not None else
+                 torch.randn(key, generator=generator, device=device))
+        if self.cfg.legacy_label_cache:
+            self.label_cache[key] = noise
+        return noise
+
     def compute(self, state: TrainState, src_u8: torch.Tensor,
                 tgt_u8: torch.Tensor, *, apply_gp: bool,
                 generator: Optional[torch.Generator] = None,
+                aug_draws: Optional[AugmentDraws] = None,
                 label_noise: Optional[torch.Tensor] = None,
                 gp_alpha: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         mode, smoothing = cfg.loss, cfg.label_smoothing
         gen, disc = state.gen, state.disc
-        real_a, real_b = preprocess(src_u8, tgt_u8)
+        real_a, real_b = preprocess_batch(src_u8, tgt_u8,
+                                          augment=self.augment,
+                                          generator=generator,
+                                          draws=aug_draws)
         batch = real_a.shape[0]
 
         fake = gen(real_a)
@@ -90,9 +113,8 @@ class TrainStep:
         pred_fake, pred_real = pred[:batch], pred[batch:]
         noise = None
         if smoothing:
-            noise = label_noise if label_noise is not None else torch.randn(
-                pred_real.shape, generator=generator, device=pred.device)
-            noise = noise.to(pred.device)
+            noise = self._label_noise(pred_real.shape, pred.device, generator,
+                                      label_noise)
         loss_d = (gan_loss(pred_fake, False, mode=mode)
                   + gan_loss(pred_real, True, mode=mode,
                              label_smoothing=smoothing, noise=noise)) / 2.0
@@ -109,14 +131,28 @@ class TrainStep:
                torch.autograd.grad(loss_d + gp, d_params))
 
         # -------- G update, against the updated D --------
-        pred_fake_g, _ = disc(real_a, fake)
+        pan = cfg.lambda_per != 0 and cfg.version == 2
+        if pan:
+            # One D forward of 2B rows gives the fake's logits and both
+            # pairs' features (every D op is per sample).
+            pred_g, feats = disc(torch.cat([real_a, real_a]),
+                                 torch.cat([fake, real_b]))
+            pred_fake_g = pred_g[:batch]
+            feats_fake = [f[:batch].detach() for f in feats]
+            feats_real = [f[batch:].detach() for f in feats]
+        else:
+            pred_fake_g, _ = disc(real_a, fake)
         loss_gan = gan_loss(pred_fake_g, True, mode=mode,
                             for_discriminator=False,
                             label_smoothing=smoothing, noise=noise)
         loss_l1 = l1_loss(real_b, fake)
         loss_g = loss_gan + loss_l1 * cfg.lambda_a
         loss_per = torch.zeros((), device=pred.device)
-        if cfg.lambda_per != 0:
+        if pan:
+            loss_per = pan_loss(feats_real, feats_fake,
+                                weights=cfg.w_per) * cfg.lambda_per
+            loss_g = loss_g + loss_per
+        elif cfg.lambda_per != 0:
             loss_per = vgg_perceptual_loss(self.vgg_params, real_b, fake,
                                            weights=cfg.w_per) * cfg.lambda_per
             loss_g = loss_g + loss_per

@@ -134,12 +134,18 @@ def test_jax_checkpoint_adam_state_round_trips(jax_file):
 
 
 _BLOCKED_READ = """
-import json, sys
+import importlib, json, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+import tactile_gan_torch
 from tactile_gan_torch.utils.checkpoint import load_checkpoint
+# Every module of the port imports with jax and flax blocked.
+modules = sorted(m.name for m in pkgutil.walk_packages(
+    tactile_gan_torch.__path__, "tactile_gan_torch."))
+for name in modules:
+    importlib.import_module(name)
 ckpt = load_checkpoint(sys.argv[1])
-print(json.dumps({"step": ckpt["step"],
+print(json.dumps({"modules": modules, "step": ckpt["step"],
                   "gen": sum(float(v.double().sum()) for v in ckpt["gen"].values()),
                   "mu": sum(float(v.double().sum()) for v in
                             ckpt["optimizerD_state_dict"]["mu"].values()),
@@ -158,6 +164,11 @@ def test_msgpack_reader_needs_neither_flax_nor_jax(jax_file):
     got = json.loads(out.stdout.strip().splitlines()[-1])
     ckpt = port_checkpoint.load_checkpoint(jax_file["path"])
     assert got["step"] == 7 and not got["jax_imported"]
+    assert {"tactile_gan_torch.data.augment",
+            "tactile_gan_torch.cli.two_step_test",
+            "tactile_gan_torch.cli.visualize_augmentation",
+            "tactile_gan_torch.losses.perceptual",
+            "tactile_gan_torch.ops.resize"} <= set(got["modules"])
     assert got["gen"] == sum(float(v.double().sum())
                              for v in ckpt["gen"].values())
     assert got["mu"] == sum(float(v.double().sum()) for v in

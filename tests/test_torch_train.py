@@ -606,17 +606,22 @@ def test_train_cli_flags(tmp_path, capsys):
     note = capsys.readouterr().out
     assert "ignored" in note and "--lane_pack" in note and "--mesh_data" in note
     assert cfg.nf == 8 and cfg.device == "cuda"
-    for flag in (["--space_to_depth"], ["--no-host_aug"],
-                 ["--legacy_label_cache"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            _train(str(tmp_path), extra=flag)
+    # The variants train for 2 epochs; only the orbax backend is refused.
+    for i, flag in enumerate((["--space_to_depth"], ["--no-host_aug"],
+                              ["--legacy_label_cache"],
+                              ["--version", "2", "--lambda_per", "1"])):
+        trainer = _run(str(tmp_path / f"variant{i}"), extra=flag)
+        per = np.load(os.path.join(trainer.cfg.models_dir(), "perloss.npy"))
+        assert per.shape == (2,) and np.all(np.isfinite(
+            trainer.gen_loss + trainer.disc_loss + trainer.l1_loss))
+        assert np.all(per > 0) == (flag[0] == "--version")
+    with pytest.raises(NotImplementedError, match="--ckpt_backend orbax"):
+        _train(str(tmp_path), extra=("--ckpt_backend", "orbax"))
     # --checkpoint_interval is ported: 2 epochs at interval 5 write no
     # checkpoint, and the folder exists all the same, as in the JAX loop.
     root = str(tmp_path / "interval")
     _train(root, extra=["--checkpoint_interval", "5"])
     assert os.listdir(os.path.join(root, "checkpoints", "m")) == []
-    with pytest.raises(NotImplementedError, match="pan_loss"):
-        _train(str(tmp_path), extra=("--version", "2", "--lambda_per", "1"))
     if not torch.cuda.is_available():
         cfg = TrainConfig(data=os.path.join(str(tmp_path), "data"))
         ds = port_dataset.PairedDataset(
