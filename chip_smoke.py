@@ -142,7 +142,32 @@ Phases, each raising on failure (each prints its seconds):
      with its counts, eval.txt and elm/; each stage and the chain on the
      card against the CPU's at batch 1 (the chain in bf16 within twice
      what bf16 compute moves it on the CPU, at least the serve limits);
-     cli.visualize_augmentation on the card over two training pairs.
+     cli.visualize_augmentation on the card over two training pairs;
+ 11. parallel (tactile_gan_torch/parallel, utils/dist_ckpt.py, entry.py):
+     (a) cli.train at its defaults, graphed, for 4 steps (8 pairs, 2
+     epochs) without a process group and then as the one rank of an NCCL
+     group in this process (a file store), cuDNN deterministic in both:
+     exactly 30 A, 30 C, 9 B, 9 B-dx and 9 D launches a step, the gradient
+     all-reduces captured in the graph, both runs' parameters and losses
+     equal bit for bit, each run's graphed step under the profiler (host
+     wall, busy, idle share, host launches); (b) data parallelism over 2
+     gloo ranks sharing cuda:0 (eager), UNet++ nf 64, 2 rows a rank at
+     256x256, float32 compute with cuDNN deterministic, 4 steps on
+     injected draws, against the one-rank batch-4 step in this process
+     within GVE_FACTOR times a floor, at least GVE_MIN: the one-rank run
+     on the batch with its rows (and draws) permuted; each rank with the
+     default width's counts a step; the fault D's all-reduce left out must
+     fall outside; (c) tensor parallelism 1x2 (every conv of 256 channels
+     or more split) for 2 steps, the same way, the floor the larger of the
+     permuted run and the one-rank run with each such conv computed as two
+     convs on the halves of its weight, with the fault of a gather whose
+     backward sums; in (b) and (c) every rank's losses, and in (c) its
+     gradients of the parameters that are not split (before their average
+     over the ranks), must equal rank 0's bits; (d) a DCP
+     checkpoint (--ckpt_backend orbax) saved after (c) and restored at its
+     latest step into a fresh sharded state must equal it; (e) entry() on
+     the card, dryrun_multichip(4) (4 gloo ranks on cuda:0: one card) and
+     dryrun_multichip(1) (NCCL, a card a rank).
 
 Then, not a gate, one call of kernel A and one of C are captured into a
 CUDA graph (torch.cuda.graph) and replayed; whether each captures is
@@ -155,6 +180,7 @@ device is available or the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -2249,6 +2275,494 @@ def phase_variants(torch, ka, kb, kd, args, record):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase parallel: tactile_gan_torch/parallel (data and tensor parallelism),
+# the DCP checkpoints of --ckpt_backend orbax, and tactile_gan_torch/entry.py.
+# ---------------------------------------------------------------------------
+
+PAR_PAIRS = 8         # (a): 2 steps an epoch, 4 steps in two epochs
+PAR_RANKS = 2         # (b)-(d): ranks on cuda:0, gloo
+PAR_DP_STEPS = 4      # (b)
+PAR_TP_STEPS = 2      # (c)
+PAR_TP_MIN = 256      # the trainer's split threshold (train/loop.py)
+PAR_DEVICE = "cuda:0"  # the card the gloo ranks share
+# (name, n_data, n_model, steps, planted fault or None) of the gloo runs.
+PAR_RUNS = (("dp", PAR_RANKS, 1, PAR_DP_STEPS, None),
+            ("dp fault: D all-reduce left out", PAR_RANKS, 1, PAR_DP_STEPS,
+             "d_unreduced"),
+            ("tp", 1, PAR_RANKS, PAR_TP_STEPS, None),
+            ("tp fault: summing gather backward", 1, PAR_RANKS,
+             PAR_TP_STEPS, "summing_gather"))
+
+
+def par_state(torch, cfg, seed, device):
+    """UNet++ and D at ``cfg`` from ``seed`` with their Adam pair, on
+    ``device`` (a TrainState)."""
+    from tactile_gan_torch.models.blocks import init_weights
+    from tactile_gan_torch.models.factory import networks
+    from tactile_gan_torch.train.state import TrainState, make_optimizer
+
+    gen, disc = networks(cfg)
+    init_weights(gen, torch.Generator().manual_seed(seed))
+    init_weights(disc, torch.Generator().manual_seed(seed + 1))
+    gen.to(device)
+    disc.to(device)
+    return TrainState(gen, disc,
+                      make_optimizer(gen.parameters(), cfg.lr, cfg.beta1),
+                      make_optimizer(disc.parameters(), cfg.lr, cfg.beta1))
+
+
+def par_flat(torch, state):
+    """Every parameter of G then D, full shape (split tensors gathered:
+    collective), flattened into one float32 tensor on the host."""
+    from tactile_gan_torch.parallel.tensor_parallel import full_state_dicts
+
+    sd = full_state_dicts(state)
+    return torch.cat([v.detach().flatten().float().cpu()
+                      for k in ("gen", "disc") for v in sd[k].values()])
+
+
+def par_inputs(torch, args, steps, label_shape):
+    """(src, tgt, label noise, GP alpha) of each step at the global batch,
+    on the host: chart pairs and seeded draws."""
+    pairs = chart_pairs(steps * TRAIN_BATCH, FULL_RES, args.seed + 40)
+    g = torch.Generator().manual_seed(args.seed + 41)
+    out = []
+    for i in range(steps):
+        chunk = pairs[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+        out.append(tuple(torch.from_numpy(np.stack([p[k] for p in chunk]))
+                         for k in (0, 1))
+                   + (torch.randn((TRAIN_BATCH, *label_shape), generator=g),
+                      torch.rand((TRAIN_BATCH, 1, 1, 1), generator=g)))
+    return out
+
+
+def par_steps(torch, cfg, state, step, inputs, device, rows=slice(None),
+              perm=None):
+    """Run ``step`` over ``inputs`` with the draws injected: this rank's
+    ``rows`` of each batch, after permuting its rows by ``perm`` (batch
+    and draws alike). (losses, seconds of each step)."""
+    losses, seconds = [], []
+    for src, tgt, noise, alpha in inputs:
+        if perm is not None:
+            src, tgt, noise, alpha = (t[perm] for t in (src, tgt, noise,
+                                                        alpha))
+        t0 = time.perf_counter()
+        losses.append(step(state, src[rows].to(device), tgt[rows].to(device),
+                           apply_gp=True, label_noise=noise,
+                           gp_alpha=alpha).cpu())  # waits for the device
+        seconds.append(time.perf_counter() - t0)
+    return torch.stack(losses), seconds
+
+
+def par_plant(fault):
+    """Plant ``fault`` in this process (``plant`` of tests/torch_dist.py,
+    the parallel tests' helpers); returns the undo."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_dist
+
+    return torch_dist.plant(fault)
+
+
+def par_split_in_two(torch, min_features):
+    """Make every conv of the one-process step with ``min_features``
+    output channels or more run as two convs on the halves of its weight
+    and bias, concatenated: the arithmetic of a 1x2 tensor-parallel step
+    in one process. Returns the undo."""
+    from torch import nn
+
+    from tactile_gan_torch.ops import conv as conv_ops
+
+    orig = conv_ops.split_conv
+
+    def split_in_two(layer, x, conv):
+        dim = 1 if isinstance(layer, nn.ConvTranspose2d) else 0
+        if layer.weight.shape[dim] < min_features:
+            return conv(x)
+        fn = conv_ops.conv2d_transpose if dim else conv_ops.conv2d
+        biases = (layer.bias.chunk(2) if layer.bias is not None
+                  else (None, None))
+        return torch.cat([fn(x, w.contiguous(), stride=layer.stride[0],
+                             padding=layer.padding[0], bias=b)
+                          for w, b in zip(layer.weight.chunk(2, dim),
+                                          biases)], dim=-1)
+    conv_ops.split_conv = split_in_two
+    return lambda: setattr(conv_ops, "split_conv", orig)
+
+
+def par_rank(rank, world, root):
+    """One gloo rank for (b)-(d) on the device, config and split threshold
+    of root/spec.pt: each of PAR_RUNS from the seeded state over the
+    spec's global inputs, then (after the tp run) a DCP save and a restore
+    into a fresh state. Writes root/rank{rank}.pt: each run's losses, step
+    times, launches, (tensor parallel) the gradients it computed for the
+    parameters that are not split, before the average, and (rank 0) every
+    parameter at full shape."""
+    import torch
+    import torch.distributed as dist
+
+    from tactile_gan_torch.core.config import TrainConfig
+    from tactile_gan_torch.models.vgg import load_vgg_features
+    from tactile_gan_torch.ops.kernels import conv3x3 as kb
+    from tactile_gan_torch.ops.kernels import conv3x3_wgrad as kd
+    from tactile_gan_torch.ops.kernels import instance_norm as ka
+    from tactile_gan_torch.parallel.mesh import local_batch_rows, make_mesh
+    from tactile_gan_torch.parallel.tensor_parallel import shard_state_tp
+    from tactile_gan_torch.parallel.rank_probe import unsplit_gradients
+    from tactile_gan_torch.train.step import build_train_step
+    from tactile_gan_torch.utils.dist_ckpt import DistCheckpointer, flat_state
+
+    spec = torch.load(os.path.join(root, "spec.pt"))
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    # The one-rank step's library settings (TF32 off: main()).
+    torch.backends.cudnn.allow_tf32 = spec["tf32"]
+    torch.backends.cuda.matmul.allow_tf32 = spec["tf32"]
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(root, "store"), world), rank=rank, world_size=world)
+    cfg = TrainConfig(**spec["cfg"])
+    vgg = load_vgg_features(device=dev)
+    out = {}
+    try:
+        for name, n_data, n_model, steps, fault in PAR_RUNS:
+            mesh = make_mesh(n_data, n_model)
+            state = par_state(torch, cfg, spec["seed"], dev)
+            shard_state_tp(mesh, state, spec["tp_min"])
+            step = build_train_step(cfg, lambda s: cfg.lr, vgg, mesh)
+            undo = par_plant(fault) if fault else None
+            reset_counts(ka, kb, kd)
+            rows = local_batch_rows(TRAIN_BATCH, mesh)
+            r = {}
+            try:
+                with (unsplit_gradients() if n_model > 1
+                      else contextlib.nullcontext([])) as raw:
+                    losses, secs = par_steps(
+                        torch, cfg, state, step,
+                        spec["inputs"][:PAR_TP_STEPS], dev, rows)
+                if steps > PAR_TP_STEPS:
+                    r["params_2"] = par_flat(torch, state)
+                    more = par_steps(torch, cfg, state, step,
+                                     spec["inputs"][PAR_TP_STEPS:steps], dev,
+                                     rows)
+                    losses, secs = torch.cat([losses, more[0]]), secs + more[1]
+            finally:
+                if undo:
+                    undo()
+            r.update(losses=losses, seconds=secs,
+                     launches=launch_counts(ka, kb, kd),
+                     params=par_flat(torch, state), raw=[
+                         torch.cat([g.flatten() for g in call])
+                         for call in raw])
+            if name == "tp":
+                ck = DistCheckpointer(os.path.join(root, "orbax"),
+                                      mesh.ckpt_group)
+                ck.save(state.step, state)
+                ck.wait()
+                fresh = par_state(torch, cfg, spec["seed"] + 7, dev)
+                shard_state_tp(mesh, fresh, spec["tp_min"])
+                latest = ck.latest_step()
+                ck.restore(latest, fresh)
+                ck.close()
+                a, b = flat_state(state), flat_state(fresh)
+                r["dcp"] = {"latest": latest, "step": fresh.step,
+                            "equal": fresh.step == state.step and all(
+                                torch.equal(a[k].cpu(), b[k].cpu())
+                                for k in a),
+                            "split_keys": sum("@shard" in k for k in a)}
+            if rank:
+                r.pop("params")
+                r.pop("params_2", None)
+            out[name] = r
+            del state, step
+    finally:
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def par_reading(cfg, res, ref):
+    """Loss and parameter distance of one run from a reference run."""
+    (la, pa), (lb, pb) = res, ref
+    return {"loss_rel": ((la - lb).abs() / lb.abs().clamp_min(1e-30))
+            .max().item(),
+            "param_mean_lr": ((pa - pb).abs().mean() / cfg.lr).item()}
+
+
+# The floors of (b) and (c): one-process runs whose arithmetic differs from
+# the one-rank step's as a parallel step's does. Data parallelism sums the
+# batch in another order; tensor parallelism, in addition, runs each split
+# conv as two convs of half the output channels (other library algorithms)
+# and sums their input gradients across the ranks.
+PAR_FLOORS = {"dp": ("rows permuted",),
+              "tp": ("rows permuted", "convs split in two")}
+
+
+def parallel_gloo(torch, ka, kb, kd, args):
+    """(b)-(d): PAR_RUNS on PAR_RANKS gloo ranks sharing cuda:0, each held
+    to the one-rank step on the global batch in this process within
+    GVE_FACTOR times the largest of its PAR_FLOORS, at least GVE_MIN; the
+    faults must fall outside; every rank of a run must report rank 0's
+    losses and (1x2) compute the bits of rank 0's gradients for the
+    parameters that are not split; the DCP restore must equal the saved
+    state."""
+    import torch.multiprocessing as mp
+
+    from tactile_gan_torch.core.config import TrainConfig
+    from tactile_gan_torch.models.vgg import load_vgg_features
+    from tactile_gan_torch.train.step import build_train_step
+
+    dev = torch.device(PAR_DEVICE)
+    # float32 compute (TF32 off, as main() sets it here and par_rank in the
+    # ranks): in bf16 a split batch or a split conv that takes another
+    # library algorithm moves roundings of the output by a bf16 ulp.
+    cfg = TrainConfig(device=PAR_DEVICE, compute_dtype="float32")
+    seed = args.seed + 43
+    vgg = load_vgg_features(device=dev)
+    probe = par_state(torch, cfg, seed, dev)
+    with torch.no_grad():
+        zeros = torch.zeros((1, FULL_RES, FULL_RES, 3), device=dev)
+        label_shape = tuple(probe.disc(zeros, zeros)[0].shape[1:])
+    inputs = par_inputs(torch, args, PAR_DP_STEPS, label_shape)
+    g_params = sum(p.numel() for p in probe.gen.parameters())
+    d_params = sum(p.numel() for p in probe.disc.parameters())
+    del probe
+
+    def one_rank(perm=None, split=False):
+        state = par_state(torch, cfg, seed, dev)
+        step = build_train_step(cfg, lambda s: cfg.lr, vgg)
+        undo = par_split_in_two(torch, PAR_TP_MIN) if split else None
+        res = {}
+        try:
+            for n in (PAR_TP_STEPS, PAR_DP_STEPS):
+                losses, _ = par_steps(torch, cfg, state, step,
+                                      inputs[:n] if n == PAR_TP_STEPS
+                                      else inputs[PAR_TP_STEPS:n], dev,
+                                      perm=perm)
+                res[n] = (losses, par_flat(torch, state))
+        finally:
+            if undo:
+                undo()
+        res[PAR_DP_STEPS] = (torch.cat([res[PAR_TP_STEPS][0],
+                                        res[PAR_DP_STEPS][0]]),
+                             res[PAR_DP_STEPS][1])
+        return res
+
+    # cuDNN's deterministic algorithms on both sides: the floor then holds
+    # the reordered sums and no run-to-run atomics.
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        ref = one_rank()
+        floor_runs = {"rows permuted": one_rank(torch.tensor([2, 3, 0, 1])),
+                      "convs split in two": one_rank(split=True)}
+        with tempfile.TemporaryDirectory() as root:
+            torch.save({"seed": seed, "inputs": inputs, "device": PAR_DEVICE,
+                        "tp_min": PAR_TP_MIN,
+                        "tf32": torch.backends.cudnn.allow_tf32,
+                        "cfg": dataclasses.asdict(cfg)},
+                       os.path.join(root, "spec.pt"))
+            t0 = time.perf_counter()
+            mp.start_processes(par_rank, args=(PAR_RANKS, root),
+                               nprocs=PAR_RANKS, start_method="spawn")
+            spawn_s = time.perf_counter() - t0
+            ranks = [torch.load(os.path.join(root, f"rank{r}.pt"))
+                     for r in range(PAR_RANKS)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = {"ranks": PAR_RANKS, "spawn_s": spawn_s, "runs": {},
+           "floor_runs": {}, "floor": {}, "limits": {}}
+    for n in (PAR_TP_STEPS, PAR_DP_STEPS):
+        each = {name: par_reading(cfg, r[n], ref[n])
+                for name, r in floor_runs.items()}
+        out["floor_runs"][str(n)] = each
+        print(f"parallel floors after {n} steps: {each}", flush=True)
+    for kind, steps in (("dp", PAR_DP_STEPS), ("tp", PAR_TP_STEPS)):
+        each = out["floor_runs"][str(steps)]
+        floor = {k: max(each[f][k] for f in PAR_FLOORS[kind])
+                 for k in GVE_MIN}
+        out["floor"][kind] = floor
+        out["limits"][kind] = {k: max(GVE_FACTOR * floor[k], GVE_MIN[k])
+                               for k in floor}
+    # A 1x2 step is the split-in-two step's arithmetic in two processes.
+    out["tp_from_split_in_two"] = par_reading(
+        cfg, (ranks[0]["tp"]["losses"], ranks[0]["tp"]["params"]),
+        floor_runs["convs split in two"][PAR_TP_STEPS])
+    print(f"parallel (c) tp against the one-process step with its convs "
+          f"split in two: {out['tp_from_split_in_two']}", flush=True)
+    unequal = []
+    for name, n_data, n_model, steps, fault in PAR_RUNS:
+        kind = "tp" if n_model > 1 else "dp"
+        limits = out["limits"][kind]
+        r0 = ranks[0][name]
+        reading = par_reading(cfg, (r0["losses"], r0["params"]),
+                              ref[steps])
+        reading["within_limits"] = all(reading[k] <= limits[k]
+                                       for k in limits)
+        # Every rank reports its own losses (averaged over its data group),
+        # and under 1x2 each computes the gradients of the parameters that
+        # are not split itself, before the average evens out library sums:
+        # with cuDNN deterministic, a rank that computed something else
+        # shows here.
+        reading["ranks_equal"] = (
+            n_model == 1 or len(r0["raw"]) == 2 * steps) and all(
+            torch.equal(r0["losses"], rr[name]["losses"])
+            and len(r0["raw"]) == len(rr[name]["raw"])
+            and all(torch.equal(a, b) for a, b in zip(r0["raw"],
+                                                      rr[name]["raw"]))
+            for rr in ranks[1:])
+        if not fault and not reading["ranks_equal"]:
+            unequal.append(name)
+        ms = [s * 1e3 for s in r0["seconds"]]
+        reading.update(mesh=f"{n_data}x{n_model}", steps=steps,
+                       ms_per_step=ms, launches=[rr[name]["launches"]
+                                                 for rr in ranks])
+        if not fault:
+            want = {k: v * steps for k, v in PER_STEP.items()}
+            if any(rr[name]["launches"] != want for rr in ranks):
+                raise AssertionError(f"parallel {name}: launches "
+                                     f"{reading['launches']}, expected "
+                                     f"{want} a rank")
+        if "dcp" in r0:
+            reading["dcp"] = [rr[name]["dcp"] for rr in ranks]
+        if "params_2" in r0:
+            reading["after_2_steps"] = par_reading(
+                cfg, (r0["losses"][:PAR_TP_STEPS], r0["params_2"]),
+                ref[PAR_TP_STEPS])
+        out["runs"][name] = reading
+        print(f"parallel (gloo, {PAR_RANKS} ranks on cuda:0, eager) {name}: "
+              f"mesh {n_data}x{n_model}, {steps} steps, ms/step "
+              f"{[round(m, 2) for m in ms]}; loss_rel "
+              f"{reading['loss_rel']:.3e}, param_mean_lr "
+              f"{reading['param_mean_lr']:.3e} (floor {out['floor'][kind]}, "
+              f"limits {limits}); ranks equal {reading['ranks_equal']}; "
+              f"after 2 steps {reading.get('after_2_steps')}", flush=True)
+    out.update(allreduce_bytes_per_step=4 * (g_params + d_params + 5),
+               g_params=g_params, d_params=d_params)
+    runs = out["runs"]
+    bad = ([n for n, _, _, _, f in PAR_RUNS if not f
+            and not runs[n]["within_limits"]]
+           + [n for n, _, _, _, f in PAR_RUNS if f
+              and runs[n]["within_limits"]])
+    print(f"parallel: {out['allreduce_bytes_per_step']:,} bytes all-reduced "
+          f"a data-parallel step (counted: {g_params:,} G and {d_params:,} "
+          "D float32 parameters and the 5 losses)", flush=True)
+    dcp = runs["tp"]["dcp"]
+    print(f"parallel (d) DCP save under 1x{PAR_RANKS} TP, restore at the "
+          f"latest step into a fresh state: {dcp}", flush=True)
+    if bad or unequal or not all(d["equal"] and d["latest"] == PAR_TP_STEPS
+                                 and d["split_keys"] > 0 for d in dcp):
+        raise AssertionError(f"parallel gloo: out of limits or fault not "
+                             f"caught: {bad}; ranks unequal: {unequal}; "
+                             f"DCP {dcp}")
+    return out
+
+
+def parallel_nccl(torch, ka, kb, kd, args):
+    """(a): cli.train at its defaults, graphed, for 4 steps, first without
+    a process group and then as rank 0 of a one-rank NCCL group (a file
+    store, this process): exact counts, equal bits (cuDNN deterministic in
+    both), and each run's graphed step under the profiler."""
+    import torch.distributed as dist
+
+    from tactile_gan_torch.utils.profiling import profile_calls
+
+    out = {}
+    flats, losses = {}, {}
+    dev = torch.device("cuda")
+    shape = (TRAIN_BATCH, FULL_RES, FULL_RES, 3)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 44)
+    src, tgt = (torch.randint(0, 256, shape, generator=gen, device=dev,
+                              dtype=torch.uint8) for _ in range(2))
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            write_pairs(root, "train", chart_pairs(PAR_PAIRS, FULL_RES,
+                                                   args.seed + 42))
+            for name in ("plain", "nccl"):
+                if name == "nccl":
+                    dist.init_process_group("nccl", store=dist.FileStore(
+                        os.path.join(root, "store"), 1), rank=0,
+                        world_size=1)
+                try:
+                    trainer, *run = train_run(torch, ka, kb, kd, root,
+                                              f"par_{name}", args)
+                    r = run_summary(trainer, *run)
+                    mesh = trainer.mesh
+                    if (name == "nccl") != (mesh is not None) or (
+                            mesh is not None and (mesh.backend, mesh.shape)
+                            != ("nccl", {"data": 1, "model": 1})):
+                        raise AssertionError(f"parallel {name}: mesh {mesh}")
+                    if sorted(trainer.graphed.captured) != [True]:
+                        raise AssertionError(f"parallel {name}: captured "
+                                             f"{trainer.graphed.captured}")
+                    flats[name] = par_flat(torch, trainer.state)
+                    losses[name] = [r["losses"][k] for k in sorted(
+                        r["losses"])]
+                    r["profile"] = profile_calls(
+                        lambda: trainer._step(src, tgt, True), reps=3,
+                        warmup=1)
+                    out[name] = r
+                    print_run(f"parallel (a) {name}", r)
+                    p = r["profile"]
+                    print(f"parallel (a) {name} graphed step under the "
+                          f"profiler: host wall {p['wall_ms']:.2f} ms, busy "
+                          f"{p['busy_ms']:.2f} ms, idle {p['idle_share']:.3f}"
+                          f", host launches {p['host_launches']}",
+                          flush=True)
+                    del trainer
+                finally:
+                    if name == "nccl":
+                        dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out["bit_equal"] = (torch.equal(flats["plain"], flats["nccl"])
+                        and losses["plain"] == losses["nccl"])
+    print(f"parallel (a): 4 graphed steps, one-rank NCCL against no process "
+          f"group, equal bits: {out['bit_equal']}", flush=True)
+    if not out["bit_equal"]:
+        diff = (flats["plain"] - flats["nccl"]).abs()
+        raise AssertionError(f"parallel (a): the NCCL run differs: max "
+                             f"{diff.max().item():.3e}, {int((diff > 0).sum())}"
+                             f" of {diff.numel()} parameters; losses "
+                             f"{losses}")
+    return out
+
+
+def phase_parallel(torch, ka, kb, kd, args, record):
+    """The parallel layer: (a) the trainer in a one-rank NCCL group,
+    graphed; (b) data parallelism and (c) tensor parallelism over gloo
+    ranks sharing cuda:0, each against the one-rank step with a planted
+    fault; (d) the DCP checkpoint of --ckpt_backend orbax saved under (c)
+    and restored; (e) entry() and dryrun_multichip(4) (gloo on one card)
+    and (1) (NCCL) on the card. A gate."""
+    from tactile_gan_torch.entry import dryrun_multichip, entry
+
+    card = card_line()
+    out = {"card": card}
+    out["nccl_ws1"] = parallel_nccl(torch, ka, kb, kd, args)
+    out["gloo"] = parallel_gloo(torch, ka, kb, kd, args)
+    fn, (x,) = entry()
+    y = fn(x)
+    torch.cuda.synchronize()
+    if tuple(y.shape) != tuple(x.shape) or not torch.isfinite(y).all():
+        raise AssertionError(f"entry(): output {tuple(y.shape)}, finite "
+                             f"{bool(torch.isfinite(y).all())}")
+    out["entry"] = {"shape": list(y.shape), "device": str(y.device)}
+    out["dryrun_multichip_s"] = {}
+    for n in (4, 1):
+        t0 = time.perf_counter()
+        dryrun_multichip(n)
+        out["dryrun_multichip_s"][n] = time.perf_counter() - t0
+    print(f"parallel (e): entry() {out['entry']}; dryrun_multichip(4, 1) on "
+          f"{card} in {out['dryrun_multichip_s']} s", flush=True)
+    record["parallel"] = out
+    return out
+
+
 def per_forward(rows, key, pick):
     """Sum of `key` over one serving forward's launches (rows picked)."""
     return sum(r[key] * r["per_forward"] for r in rows if pick(r))
@@ -2629,6 +3143,8 @@ def main() -> int:
                   kd, args, record)
     variants = timed("variants", phase_variants, torch, ka, kb, kd, args,
                      record)
+    parallel = timed("parallel", phase_parallel, torch, ka, kb, kd, args,
+                     record)
 
     # Launches over the main paths: the training run, the trained folder
     # served, and the serving runs; kernel E's in the conv probe.
@@ -2651,6 +3167,14 @@ def main() -> int:
                             for r in variants["train"].values())
                         + variants["serve_s2d"]["serve_launches"][k]
                         + variants["two_step"]["launches"][k])
+    # The parallel phase's trainer runs (a) and every rank's steps of the
+    # gloo runs (b) and (c), the planted faults left out.
+    for k in launches:
+        launches[k] += sum(parallel["nccl_ws1"][name]["launches"][k]
+                           for name in ("plain", "nccl"))
+        launches[k] += sum(rank[k] for name, _, _, _, fault in PAR_RUNS
+                           if not fault for rank in
+                           parallel["gloo"]["runs"][name]["launches"])
     fwd = serving_rows(TRAIN_BATCH)
     a_step = [r for r in a_rows if fwd(r)]
     b_step = [r for r in b_rows if fwd(r)]

@@ -3,7 +3,12 @@
 The flags of the repository's ``train.py`` plus ``--device`` (default cuda;
 ``--device cpu`` runs the plain PyTorch versions of the kernels). Reads
 ``{data}/train/source`` and writes final_model.pth, the five loss arrays
-and params.txt into ``{work_root}/models/{folder_save}``.
+and params.txt into ``{work_root}/models/{folder_save}``. Under torchrun
+it trains one rank of a parallel run (``--mesh_data``, ``--mesh_model``)
+and only rank 0 prints and writes:
+
+    torchrun --nproc_per_node N -m tactile_gan_torch.cli.train \
+        --mesh_model M --data DIR
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ def main(argv=None, *, graphed: bool = True):
                               aug=not cfg.no_aug)
     trainer = Trainer(cfg, train_set, graphed=graphed)
     save_path = trainer.run_and_save()
-    print(f"saved model + arrays + params to {save_path}")
+    if trainer.is_main_process:
+        print(f"saved model + arrays + params to {save_path}")
     return trainer
 
 

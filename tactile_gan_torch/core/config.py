@@ -6,12 +6,14 @@ Field names and defaults are those of ``tactile_gan_tpu/core/config.py``
 rehydrates here and the other way round. Unknown keys are ignored.
 
 The port adds ``device`` (cuda unless the caller asks for cpu).
-``--profile_dir`` works as in the JAX package; ``--debug_nans`` checks each
-step's losses (not each operation, as ``jax_debug_nans`` does). Flags that
-only choose a TPU layout or kernel of the same function (``--use_pallas``,
-``--lane_pack``, the mesh sizes, ...) are accepted and ignored with a
-one-line note; flags that choose another function the port does not build
-yet (``--ckpt_backend orbax``) are refused by the trainer.
+``--profile_dir`` works as in the JAX package;
+``--debug_nans`` checks each step's losses (not each operation, as
+``jax_debug_nans`` does). ``--mesh_data`` / ``--mesh_model`` shape the mesh
+of a parallel run and ``--ckpt_backend orbax`` writes its periodic
+checkpoints with ``torch.distributed.checkpoint`` (``train/loop.py``).
+Flags that only choose a TPU layout or kernel of the same function
+(``--use_pallas``, ``--lane_pack``, ...) are accepted and ignored with a
+one-line note.
 """
 
 from __future__ import annotations
@@ -26,11 +28,10 @@ import torch
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-# Flags of the JAX package that only pick a TPU layout, kernel or parallel
-# decomposition of the same function: accepted, ignored by the port.
-TPU_ONLY_FLAGS = ("use_pallas", "force_pallas", "mesh_data", "mesh_model",
-                  "split_concat", "lane_pack", "bf16_resident", "packed_row0",
-                  "gp_fused", "disc_bf16")
+# Flags of the JAX package that only pick a TPU layout or kernel of the
+# same function: accepted, ignored by the port.
+TPU_ONLY_FLAGS = ("use_pallas", "force_pallas", "split_concat", "lane_pack",
+                  "bf16_resident", "packed_row0", "gp_fused", "disc_bf16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -218,7 +219,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="SAME-padding discriminator variant")
     p.add_argument("--ckpt_backend", default="native",
                    choices=["native", "orbax"],
-                   help="periodic-checkpoint backend (orbax is not ported)")
+                   help="periodic-checkpoint backend (orbax: sharded step "
+                        "checkpoints through torch.distributed.checkpoint)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     # TPU-only flags of the JAX package, accepted and ignored.
     for flag in ("use_pallas", "split_concat"):
@@ -233,9 +235,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                        action=argparse.BooleanOptionalAction,
                        help="TPU-only; ignored by the port")
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="TPU-only; ignored by the port")
+                   help="data-parallel ranks (0: world size / mesh_model)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="TPU-only; ignored by the port")
+                   help="tensor-parallel ranks that split the wide convs")
     p.add_argument("--profile_dir", default="",
                    help="write a torch.profiler trace of the first epoch "
                         "into this directory")

@@ -65,7 +65,8 @@ class PairedDataset:
 
     def batches(self, batch_size: int, *, shuffle: bool = False,
                 seed: int = 0, drop_last: bool = False, threads: int = 8,
-                pad_to_batch: bool = False, host_augment: bool = False,
+                pad_to_batch: bool = False,
+                local_rows: slice = slice(None), host_augment: bool = False,
                 augment_seed: int = 0
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
         """Yield (source u8 (B,H,W,3), target u8 (B,H,W,3), valid_count),
@@ -73,9 +74,12 @@ class PairedDataset:
         Generator seeded with ``seed``; ``drop_last`` drops the short final
         batch, ``pad_to_batch`` pads it by repeating its last pair. Decoding
         fans out over ``threads`` workers and one staging worker assembles
-        the next batch while the caller consumes this one. With
-        ``host_augment`` each pair is augmented with a Generator seeded
-        (augment_seed, batch index, row)."""
+        the next batch while the caller consumes this one. ``local_rows``
+        keeps those rows of each (padded) global batch, the rank's share
+        under data parallelism (``parallel/mesh.py`` ``local_batch_rows``);
+        ``valid_count`` stays global. With ``host_augment`` each pair is
+        augmented with a Generator seeded (augment_seed, batch index, global
+        row), so a rank's rows equal those rows of one process's batch."""
         order = np.arange(len(self.images))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
@@ -95,6 +99,8 @@ class PairedDataset:
                     idx = list(idx)
                     if pad_to_batch and valid < batch_size:
                         idx += [idx[-1]] * (batch_size - valid)
+                    rows = list(range(len(idx)))[local_rows]
+                    idx = idx[local_rows]
 
                     def load_one(args):
                         row, i = args
@@ -104,7 +110,7 @@ class PairedDataset:
                         rng = np.random.default_rng((augment_seed, chunk_i, row))
                         return augment_pair_np(pair[0], pair[1], rng)
 
-                    pairs = list(decode.map(load_one, enumerate(idx)))
+                    pairs = list(decode.map(load_one, zip(rows, idx)))
                     return (np.stack([p[0] for p in pairs]),
                             np.stack([p[1] for p in pairs]), valid)
 

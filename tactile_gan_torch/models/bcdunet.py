@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from tactile_gan_torch.models.blocks import double_conv, double_conv_layers
-from tactile_gan_torch.ops.conv import conv2d, conv2d_transpose
+from tactile_gan_torch.ops.conv import conv_layer
 from tactile_gan_torch.ops.pool import max_pool2
 
 LEVELS = 4
@@ -73,10 +73,8 @@ class BCDUNet(nn.Module):
         d = skips.pop()
         for i in range(LEVELS - 1, 0, -1):
             up = getattr(self, f"upconv{i}")
-            d = conv2d_transpose(d, up.weight, stride=2, bias=up.bias,
-                                 compute_dtype=cd)
+            d = conv_layer(d, up, compute_dtype=cd)
             d = getattr(self, f"conv{i}m")(torch.cat([skips.pop(), d],
                                                      dim=-1))
-        y = conv2d(d, self.conv0.weight, bias=self.conv0.bias,
-                   compute_dtype=cd)
+        y = conv_layer(d, self.conv0, compute_dtype=cd)
         return torch.tanh(y) if self.activation else y

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from tactile_gan_torch.ops.conv import conv2d, conv2d_transpose
+from tactile_gan_torch.ops.conv import conv_layer
 from tactile_gan_torch.ops.kernels import conv3x3 as kb
 from tactile_gan_torch.ops.kernels.instance_norm import instance_norm_act
 
@@ -34,12 +34,7 @@ def conv_norm_relu(x: torch.Tensor, conv: nn.Conv2d, norm: nn.InstanceNorm2d,
 
     ``kernel_conv`` runs the (3x3/s1/p1, bias-free) conv through kernel B.
     """
-    if kernel_conv:
-        y = kb.conv3x3(x, conv.weight, compute_dtype=compute_dtype)
-    else:
-        y = conv2d(x, conv.weight, stride=conv.stride[0],
-                   padding=conv.padding[0], bias=conv.bias,
-                   compute_dtype=compute_dtype)
+    y = conv_layer(x, conv, compute_dtype=compute_dtype, kernel=kernel_conv)
     return instance_norm_act(y, norm.weight, norm.bias, act="relu")
 
 
@@ -135,9 +130,7 @@ class UpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         up, norm = self.layer[0], self.layer[1]
-        y = conv2d_transpose(x, up.weight, stride=up.stride[0],
-                             padding=up.padding[0],
-                             compute_dtype=self.compute_dtype)
+        y = conv_layer(x, up, compute_dtype=self.compute_dtype)
         y = instance_norm_act(y, norm.weight, norm.bias, act="relu")
         return conv_norm_relu(y, self.layer[3], self.layer[4],
                               compute_dtype=self.compute_dtype,
@@ -157,8 +150,7 @@ class Head(nn.Module):
         self.conv = nn.Conv2d(in_channels, features, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d(x, self.conv.weight, bias=self.conv.bias,
-                   compute_dtype=self.compute_dtype)
+        y = conv_layer(x, self.conv, compute_dtype=self.compute_dtype)
         return torch.tanh(y) if self.activation else y
 
 

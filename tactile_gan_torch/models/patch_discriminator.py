@@ -25,7 +25,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from tactile_gan_torch.ops.conv import conv2d
+from tactile_gan_torch.ops.conv import conv_layer
 from tactile_gan_torch.ops.norm import instance_norm
 
 SLOPE = 0.2
@@ -63,10 +63,7 @@ class PatchDiscriminator(nn.Module):
         )
 
     def _conv(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        conv = self.model[i]
-        return conv2d(x, conv.weight, stride=conv.stride[0],
-                      padding=conv.padding[0],
-                      bias=conv.bias, compute_dtype=self.compute_dtype)
+        return conv_layer(x, self.model[i], compute_dtype=self.compute_dtype)
 
     def forward(self, img_a: torch.Tensor, img_b: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:

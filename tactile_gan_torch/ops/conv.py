@@ -9,7 +9,10 @@ float32 between ops, and the bias is added after (the policy of
 run this library conv; the full-resolution 3x3 convs run the hand-written
 kernel in ``ops/kernels/conv3x3.py``. ``conv2d_transpose`` (UNet's and
 BCDUNet's up-convs) follows the same policy with the library's transposed
-conv, as the JAX package computes it in XLA.
+conv, as the JAX package computes it in XLA. ``conv_layer`` runs a layer
+module through the right one of these (or kernel B), and a layer split over
+the model axis (``parallel/tensor_parallel.py``) on its slice between the
+model group's collectives.
 """
 
 from __future__ import annotations
@@ -18,6 +21,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from tactile_gan_torch.ops.kernels import conv3x3 as kb
+from tactile_gan_torch.parallel.tensor_parallel import split_conv
 
 
 def conv2d(x: torch.Tensor, weight: torch.Tensor, *, stride: int = 1,
@@ -48,3 +55,21 @@ def conv2d_transpose(x: torch.Tensor, weight: torch.Tensor, *,
     if bias is not None:
         out = out + bias.float()
     return out
+
+
+def conv_layer(x: torch.Tensor, layer: nn.Module, *,
+               compute_dtype: torch.dtype = torch.float32,
+               kernel: bool = False) -> torch.Tensor:
+    """``layer`` (an ``nn.Conv2d`` or ``nn.ConvTranspose2d``: its weight,
+    bias, stride and padding) on NHWC ``x``: the library conv or transposed
+    conv, or with ``kernel`` kernel B (a bias-free 3x3/s1/p1 conv)."""
+    def run(x):
+        if kernel:
+            return kb.conv3x3(x, layer.weight, compute_dtype=compute_dtype)
+        fn = (conv2d_transpose if isinstance(layer, nn.ConvTranspose2d)
+              else conv2d)
+        return fn(x, layer.weight, stride=layer.stride[0],
+                  padding=layer.padding[0], bias=layer.bias,
+                  compute_dtype=compute_dtype)
+
+    return split_conv(layer, x, run)

@@ -23,7 +23,10 @@ replay cannot:
   counter, which a replay does not move, so it is cleared after every
   replay (under capture it is neither read nor written).
 
-A capture that fails raises; nothing falls back to eager launches.
+A capture that fails raises; nothing falls back to eager launches. In a
+parallel run the step's all-reduces (and a split conv's gathers) are
+captured with it: NCCL's collectives capture into a graph, gloo's do not,
+so the trainer refuses a graphed step over gloo on the card.
 """
 
 from __future__ import annotations

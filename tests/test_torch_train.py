@@ -604,9 +604,11 @@ def test_checkpoint_interval_writes_each_epochs_state(tmp_path):
 def test_train_cli_flags(tmp_path, capsys):
     cfg = config_from_args(["--lane_pack", "--mesh_data", "2", "--nf", "8"])
     note = capsys.readouterr().out
-    assert "ignored" in note and "--lane_pack" in note and "--mesh_data" in note
+    # The mesh flags shape a parallel run (tests/test_torch_parallel.py).
+    assert "ignored" in note and "--lane_pack" in note
+    assert "--mesh_data" not in note and cfg.mesh_data == 2
     assert cfg.nf == 8 and cfg.device == "cuda"
-    # The variants train for 2 epochs; only the orbax backend is refused.
+    # The variants train for 2 epochs.
     for i, flag in enumerate((["--space_to_depth"], ["--no-host_aug"],
                               ["--legacy_label_cache"],
                               ["--version", "2", "--lambda_per", "1"])):
@@ -615,8 +617,13 @@ def test_train_cli_flags(tmp_path, capsys):
         assert per.shape == (2,) and np.all(np.isfinite(
             trainer.gen_loss + trainer.disc_loss + trainer.l1_loss))
         assert np.all(per > 0) == (flag[0] == "--version")
-    with pytest.raises(NotImplementedError, match="--ckpt_backend orbax"):
-        _train(str(tmp_path), extra=("--ckpt_backend", "orbax"))
+    # --ckpt_backend orbax writes step checkpoints through
+    # torch.distributed.checkpoint (tests/test_torch_dist_ckpt.py).
+    _train(str(tmp_path), extra=("--ckpt_backend", "orbax",
+                                 "--checkpoint_interval", "1"))
+    orbax = os.path.join(str(tmp_path), "checkpoints", "m", "orbax")
+    assert sorted(os.listdir(orbax)) == ["2", "4"]
+    assert os.path.exists(os.path.join(orbax, "4", ".metadata"))
     # --checkpoint_interval is ported: 2 epochs at interval 5 write no
     # checkpoint, and the folder exists all the same, as in the JAX loop.
     root = str(tmp_path / "interval")
