@@ -59,11 +59,23 @@ Phases, each raising on failure (each prints its seconds):
      evaluate_folder in the same process (train -> test end to end), with
      the serving launch counts;
   4. serve: a UNet++ nf=64 generator with N(0, 0.02) weights from --seed is
-     loaded through the port's load_model on cuda, timed alone at batch 1
-     and 4, then run through evaluate_folder (the test.py flow) over
-     synthetic chart pairs at eval_batch 1 and 4 (the plots are skipped
-     where matplotlib is not installed; the runner says so), with the
-     launch counts of both forward kernels; the card's output for one image
+     loaded through the port's load_model on cuda and timed alone at batch 1
+     and 4; its graphed serving programs (eval/graph.py, u8_eval and f32)
+     must equal the same programs run eagerly on the card bit for bit at
+     batch 1 and 4 (the capture's batch, a replay of another, the first
+     again); then evaluate_folder (the test.py flow) runs over synthetic
+     chart pairs at eval_batch 1 and 4, eager and graphed in turns (eager,
+     graphed, graphed, eager), with TACTILE_EVAL_TIMING=1 and its line
+     printed (the plots are skipped where matplotlib is not installed; the
+     runner says so), with the launch counts of both forward kernels exact
+     under replay, and the graphed run's files (every PNG and eval.txt; 126
+     pairs leave a padded tail at eval_batch 4) must equal the eager run's
+     byte for byte; a second test_model with the same forward must make no
+     new capture; a weakref to the forward's programs must be dead after
+     the forward is deleted; two faults planted on the programs must change
+     the PNGs against the eager run: a replay that skips the copy into its
+     static input, and the graph's own output (no clone) handed to a drain
+     that runs DRAIN_LAG_S late; the card's output for one image
      must match the same weights run on the CPU through the plain path;
   5. other widths: for nf 8, 12, 24, 32 and 128, cli.train runs one epoch
      of two steps at 64x64, batch 2, with --debug_nans (at nf 32 also
@@ -111,9 +123,10 @@ Phases, each raising on failure (each prints its seconds):
      --checkpoint_interval 1: exactly 28 A and 28 C launches a UNet step,
      14 and 14 a BCDUNet step, no B, B-dx or D; finite losses, every
      artifact, model_1.pth and model_2.pth read back; the trained folder
-     served through evaluate_folder (8 pairs at eval_batch 4) with its
-     counts; its forward on the card against the CPU's at batch 1 (the
-     serve phase's limits); four graphed steps against four eager ones
+     served through evaluate_folder (8 pairs at eval_batch 4, graphed)
+     with its counts; its graphed programs equal to the eager ones bit for
+     bit at batch 1 and 4 (as in serve); its forward on the card against
+     the CPU's at batch 1 (the serve phase's limits); four graphed steps against four eager ones
      within graph_vs_eager's limits, where BCDUNet's conv biases that feed
      a non-affine norm (true gradient 0) are left out of the parameters and
      their gradients held below 1e-6 of the largest gradient of their
@@ -127,7 +140,8 @@ Phases, each raising on failure (each prints its seconds):
      30 and no B, B-dx or D under --space_to_depth, whose row 0 is 128
      channels wide), finite losses, a perceptual loss above 0 (pan_loss
      under version 2, the VGG term otherwise); the --space_to_depth folder served through cli.test
-     with its counts and its forward on the card against the CPU's;
+     (graphed) with its counts, its graphed programs equal to the eager
+     ones bit for bit and its forward on the card against the CPU's;
      four graphed steps against four eager ones for --version 2,
      --no-host_aug and --space_to_depth within graph_vs_eager's limits; the
      device augmentation on the card against the CPU on one uint8 batch
@@ -141,7 +155,10 @@ Phases, each raising on failure (each prints its seconds):
      components (two seeded UNet++ nf 64 folders, stage 1 rgb, stage 2 ch)
      with its counts, eval.txt and elm/; each stage and the chain on the
      card against the CPU's at batch 1 (the chain in bf16 within twice
-     what bf16 compute moves it on the CPU, at least the serve limits);
+     what bf16 compute moves it on the CPU, at least the serve limits); the
+     chain's graphed programs (one graph for both stages, kept on stage 1
+     and found again by a new ChainedForward) equal to the eager chain bit
+     for bit at batch 1 and 4;
      cli.visualize_augmentation on the card over two training pairs;
  11. parallel (tactile_gan_torch/parallel, utils/dist_ckpt.py, entry.py):
      (a) cli.train at its defaults, graphed, for 4 steps (8 pairs, 2
@@ -185,6 +202,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1837,6 +1855,9 @@ def train_serve_other(torch, ka, kb, kd, gen_name, args):
               f"{serve}", flush=True)
 
         ckpt = os.path.join(model_dir, "final_model.pth")
+        out["programs"] = programs_vs_eager(
+            torch, f"{gen_name} serve", runner.load_model(
+                ckpt, cfg, device="cuda")[0], args.seed + 53)
         x = runner.normalize_u8(torch.from_numpy(
             chart_pairs(1, FULL_RES, args.seed + 52)[0][0][None]))
         out["card_vs_cpu"] = card_vs_cpu(
@@ -2039,6 +2060,9 @@ def variants_serve_s2d(torch, ka, kb, kd, args, root):
     x = runner.normalize_u8(torch.from_numpy(
         chart_pairs(1, FULL_RES, args.seed + 62)[0][0][None]))
     return {"serve_launches": serve, "serve_metrics": metrics,
+            "programs": programs_vs_eager(
+                torch, "--space_to_depth serve", runner.load_model(
+                    ckpt, cfg, device="cuda")[0], args.seed + 63),
             "card_vs_cpu": card_vs_cpu(
                 torch, "--space_to_depth", lambda cd, dev: runner.load_model(
                     ckpt, dataclasses.replace(cfg, compute_dtype=cd),
@@ -2210,6 +2234,17 @@ def variants_two_step(torch, ka, kb, kd, args):
         out["chain"] = card_vs_cpu(torch, "two-step chain", chain, x, {
             "bfloat16": (max(lim[0], 2 * out["bf16_floor"]["max_abs"]),
                          max(lim[1], 2 * out["bf16_floor"]["mean_abs"]))})
+        # The chain's programs: one graph for both stages, on stage 1.
+        stages = [stage(f)(cfgs[f].compute_dtype, "cuda")
+                  for f in ("s1", "s2")]
+        chained = runner.ChainedForward(*stages)
+        out["programs"] = programs_vs_eager(torch, "two-step chain",
+                                            chained, args.seed + 69)
+        if runner.ChainedForward(*stages).programs() is not \
+                chained.programs() or stages[0].programs().programs:
+            raise AssertionError("two-step chain: a new ChainedForward on "
+                                 "the same pair did not find the chain's "
+                                 "programs on stage 1")
         return out
 
 
@@ -2806,19 +2841,137 @@ def chart_pairs(n, size, seed):
     return pairs
 
 
+def programs_vs_eager(torch, label, forward, seed):
+    """The forward's graphed u8_eval and f32 programs (eval/graph.py)
+    against the same programs run eagerly on the card, bit for bit, at
+    batch 1 and 4: on a first batch (the capture's call), a second one (a
+    replay) and the first again. Each program is captured once."""
+    from tactile_gan_torch.eval.graph import ServingPrograms
+
+    pairs = chart_pairs(8, FULL_RES, seed)
+    eager = ServingPrograms(forward.gen, forward.device, graphed=False)
+    programs = forward.programs()
+    before = programs.captures
+    out = {"calls": 0}
+    for b in (1, 4):
+        batches = [tuple(torch.from_numpy(np.stack([p[j] for p in
+                                                    pairs[k * b:(k + 1) * b]]))
+                         .cuda() for j in (0, 1)) for k in (0, 1)]
+        for mode in ("u8_eval", "f32"):
+            for src, tgt in (batches[0], batches[1], batches[0]):
+                tgt = tgt if mode == "u8_eval" else None
+                got, want = programs(mode, src, tgt), eager(mode, src, tgt)
+                out["calls"] += 1
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"{label}: the graphed {mode} "
+                                         f"program at batch {b} differs from "
+                                         "the eager one")
+    out["captures"] = programs.captures - before
+    out["capture_s"] = {f"{k[0]} {k[1][0]}": p.capture_s
+                        for k, p in programs.programs.items()}
+    print(f"{label}: graphed u8_eval and f32 programs equal the eager ones "
+          f"bit for bit at batch 1 and 4 ({out['calls']} calls, "
+          f"{out['captures']} captures: {out['capture_s']})", flush=True)
+    if out["captures"] != 4:
+        raise AssertionError(f"{label}: {out['captures']} captures, "
+                             "expected 4")
+    return out
+
+
+def artifacts(out_dir):
+    """Every file a serving run wrote under ``out_dir`` (out/, sgt/, elm/,
+    eval.txt): relative name -> bytes."""
+    found = {}
+    for base, _, files in os.walk(out_dir):
+        for name in files:
+            path = os.path.join(base, name)
+            with open(path, "rb") as f:
+                found[os.path.relpath(path, out_dir)] = f.read()
+    return found
+
+
+def differing(a, b):
+    """Names whose bytes differ between two ``artifacts`` (or are missing
+    from one)."""
+    return sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+# The planted faults of the serve phase's programs. A drain behind its
+# replay is what four batches in flight allow: the late drain of the
+# uncloned fault sleeps DRAIN_LAG_S before its copy.
+DRAIN_LAG_S = 0.02
+
+
+def serve_faults(torch, runner, graph, load, dataset, root, want):
+    """Two faults planted on the graphed programs, each served through
+    test_model with a fresh forward; each must change the artifacts
+    against the eager run's ``want`` (eval_batch -> the PNGs)."""
+    def stale_stage(self, prog, batch):  # the replay keeps batch 1
+        return None
+
+    def uncloned(self, prog):  # the graph's own outputs to the drain
+        return prog.outputs
+
+    def late_to_host(t, _to_host=runner.to_host):
+        time.sleep(DRAIN_LAG_S)
+        return _to_host(t)
+
+    plants = (("replay without the copy into the static input", 1,
+               ((graph.ServingPrograms, "_stage", stale_stage),)),
+              ("static output handed to a late drain", 4,
+               ((graph.ServingPrograms, "_take", uncloned),
+                (runner, "to_host", late_to_host))))
+    out = {}
+    for name, eval_batch, patches in plants:
+        out_dir = os.path.join(root, "fault", str(eval_batch))
+        with contextlib.ExitStack() as stack:
+            for obj, attr, value in patches:
+                stack.enter_context(patched(obj, attr, value))
+            runner.test_model(load(), dataset, out_dir, evaluation=True,
+                              eval_batch=eval_batch, threads=8)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in artifacts(out_dir).items()
+               if k.endswith(".png")}
+        bad = differing(got, want[eval_batch])
+        out[name] = len(bad)
+        print(f"serve fault planted ({name}, eval_batch {eval_batch}): "
+              f"{len(bad)} of {len(got)} PNGs differ from the eager run",
+              flush=True)
+        if not bad:
+            raise AssertionError(f"serve fault not caught: {name}")
+    return out
+
+
 def phase_serve(torch, ka, kb, args, record):
+    import gc
+    import io
+    import weakref
+
     from tactile_gan_torch.core.config import TrainConfig
-    from tactile_gan_torch.eval import runner
+    from tactile_gan_torch.data.dataset import PairedDataset
+    from tactile_gan_torch.eval import graph, runner
     from tactile_gan_torch.eval.visualize import can_plot
     from tactile_gan_torch.models.blocks import init_weights
     from tactile_gan_torch.models.factory import create_generator
     from tactile_gan_torch.utils.checkpoint import save_checkpoint
 
+    card = card_line()
     flow = "evaluate_folder, plots " + (
         "drawn" if can_plot() else "skipped (matplotlib is not installed)")
     print(f"serving flow: {flow}", flush=True)
     pairs = chart_pairs(args.images, FULL_RES, args.seed)
-    out = {"flow": flow, "images": args.images, "forward": [], "runs": []}
+    out = {"card": card, "flow": flow, "images": args.images, "forward": [],
+           "runs": []}
     with tempfile.TemporaryDirectory() as root:
         cfg = TrainConfig(data="data", folder_save="smoke",
                           folder_load="smoke", threads=8)
@@ -2861,36 +3014,113 @@ def phase_serve(torch, ka, kb, args, record):
                                    "img_per_s": b * 1e3 / ms})
             print(f"generator forward, batch {b}: {ms:.3f} ms = "
                   f"{b * 1e3 / ms:.2f} img/s", flush=True)
+        out["programs"] = programs_vs_eager(torch, "UNet++ serve", forward,
+                                            args.seed + 1)
 
-        for eval_batch in (1, 4):
-            ka.instance_norm_act.launches = 0
-            kb.conv3x3.launches = 0
-            t0 = time.perf_counter()
-            metrics = runner.evaluate_folder(
-                "smoke", work_root=root, eval_batch=eval_batch, device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n_a, n_b = ka.instance_norm_act.launches, kb.conv3x3.launches
-            forwards = -(-args.images // eval_batch)
-            run = {"eval_batch": eval_batch, "seconds": wall,
-                   "img_per_s": args.images / wall, "forwards": forwards,
-                   "launches_a": n_a, "launches_b": n_b, "metrics": metrics}
-            out["runs"].append(run)
-            print(f"serve eval_batch {eval_batch}: {args.images} images in "
-                  f"{wall:.3f} s = {run['img_per_s']:.2f} img/s; launches "
-                  f"A {n_a} B {n_b} over {forwards} forwards; {metrics}",
-                  flush=True)
-            if (n_a, n_b) != (A_PER_FORWARD * forwards, B_PER_FORWARD * forwards):
-                raise AssertionError(
-                    f"expected {A_PER_FORWARD} A and {B_PER_FORWARD} B launches "
-                    f"per forward, got A {n_a} B {n_b} over {forwards}")
-            if not all(math.isfinite(v) for v in metrics.values()):
-                raise AssertionError(f"non-finite metrics {metrics}")
-            out_dir = os.path.join(root, "Outputs", "smoke")
-            written = sorted(os.listdir(os.path.join(out_dir, "out")))
-            if len(written) != args.images or not os.path.exists(
-                    os.path.join(out_dir, "eval.txt")):
-                raise AssertionError(f"artifacts missing: {written}")
+        # evaluate_folder eager and graphed in turns (eager, graphed,
+        # graphed, eager) at each eval batch, with TACTILE_EVAL_TIMING.
+        out_dir = os.path.join(root, "Outputs", "smoke")
+        written = {}
+        os.environ["TACTILE_EVAL_TIMING"] = "1"
+        try:
+            for eval_batch in (1, 4):
+                for graphed in (False, True, True, False):
+                    # Every file compared is one this run wrote.
+                    shutil.rmtree(out_dir, ignore_errors=True)
+                    ka.instance_norm_act.launches = 0
+                    kb.conv3x3.launches = 0
+                    text = io.StringIO()
+                    t0 = time.perf_counter()
+                    with contextlib.redirect_stdout(text):
+                        metrics = runner.evaluate_folder(
+                            "smoke", work_root=root, eval_batch=eval_batch,
+                            device="cuda", graphed=graphed)
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    sys.stdout.write(text.getvalue())
+                    timing = [ln for ln in text.getvalue().splitlines()
+                              if ln.startswith("[eval timing]")]
+                    n_a, n_b = ka.instance_norm_act.launches, kb.conv3x3.launches
+                    forwards = -(-args.images // eval_batch)
+                    run = {"eval_batch": eval_batch, "graphed": graphed,
+                           "seconds": wall, "img_per_s": args.images / wall,
+                           "forwards": forwards, "launches_a": n_a,
+                           "launches_b": n_b, "metrics": metrics,
+                           "timing": timing}
+                    out["runs"].append(run)
+                    print(f"serve eval_batch {eval_batch} "
+                          f"{'graphed' if graphed else 'eager'}: "
+                          f"{args.images} images in {wall:.3f} s = "
+                          f"{run['img_per_s']:.2f} img/s; launches A {n_a} "
+                          f"B {n_b} over {forwards} forwards; {metrics}; "
+                          f"{card}", flush=True)
+                    if (n_a, n_b) != (A_PER_FORWARD * forwards,
+                                      B_PER_FORWARD * forwards):
+                        raise AssertionError(
+                            f"expected {A_PER_FORWARD} A and {B_PER_FORWARD} "
+                            f"B launches per forward, got A {n_a} B {n_b} "
+                            f"over {forwards}")
+                    if not all(math.isfinite(v) for v in metrics.values()):
+                        raise AssertionError(f"non-finite metrics {metrics}")
+                    if len(timing) != 1:
+                        raise AssertionError(f"eval timing lines {timing}")
+                    found = artifacts(out_dir)
+                    if sum(k.startswith("out") for k in found) != args.images \
+                            or "eval.txt" not in found:
+                        raise AssertionError(f"artifacts missing: "
+                                             f"{sorted(found)[:8]}")
+                    if (eval_batch, graphed) not in written:
+                        written[(eval_batch, graphed)] = found
+                bad = differing(written[(eval_batch, True)],
+                                written[(eval_batch, False)])
+                if bad:
+                    raise AssertionError(f"eval_batch {eval_batch}: graphed "
+                                         f"artifacts differ from eager: "
+                                         f"{bad[:8]} ({len(bad)})")
+                print(f"serve eval_batch {eval_batch}: graphed artifacts "
+                      f"equal the eager run's byte for byte "
+                      f"({len(written[(eval_batch, True)])} files)",
+                      flush=True)
+        finally:
+            del os.environ["TACTILE_EVAL_TIMING"]
+
+        # One forward serving twice through test_model: one capture.
+        dataset = PairedDataset(os.path.join(root, "data", "test", "source"),
+                                size=cfg.image_size, mode="test")
+
+        def load():
+            return runner.load_model(ckpt, cfg, device="cuda")[0]
+
+        served = load()
+        captures = []
+        for k in range(2):
+            runner.test_model(served, dataset, os.path.join(root, "again",
+                                                            str(k)),
+                              evaluation=True, eval_batch=4, threads=8)
+            captures.append(served.programs().captures)
+        out["test_model_captures"] = captures
+        print(f"test_model twice on one forward: captures after each "
+              f"{captures}", flush=True)
+        if captures != [1, 1]:
+            raise AssertionError(f"test_model captures {captures}, expected "
+                                 "[1, 1]")
+        # The graphs die with their forward.
+        ref = weakref.ref(served.programs())
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        del served
+        gc.collect()
+        out["programs_freed"] = ref() is None
+        out["freed_bytes"] = held - torch.cuda.memory_allocated()
+        print(f"programs dead after del forward: {out['programs_freed']}; "
+              f"{out['freed_bytes']} device bytes freed", flush=True)
+        if not out["programs_freed"]:
+            raise AssertionError("the serving programs outlived their "
+                                 "forward")
+        out["faults"] = serve_faults(
+            torch, runner, graph, load, dataset, root,
+            {b: {k: v for k, v in written[(b, False)].items()
+                 if k.endswith(".png")} for b in (1, 4)})
 
         # The card against the CPU plain path, same weights, one image.
         x = torch.from_numpy(pairs[0][0][None])

@@ -8,14 +8,20 @@ Kept from the reference, as the JAX package keeps them:
   folder the JAX package trained (msgpack ``final_model.pth``) is read
   too.
 
-Per batch the device runs: normalize the uint8 upload, the generator, the
+Per batch the device runs one serving program (``eval/graph.py``, the
+JAX runner's ``_jits_for``): normalize the uint8 upload, the generator, the
 uint8 quantize (float64, bit-exact with the host writers' ``_u8``) and the
-four fuzzy-metric sums (float64). Host work is pipelined: a decode pool, a
+four fuzzy-metric sums (float64). On the card each program is a CUDA graph,
+captured once per (forward, mode, eval batch) and replayed for every batch;
+the forward owns its programs. Host work is pipelined: a decode pool, a
 one-worker staging pool that uploads batch k+1 while batch k runs, a
 one-worker device-to-host drain, and a pool of PNG writers.
+``TACTILE_EVAL_TIMING=1`` prints the host time of each stage, as the JAX
+runner does.
 
-``test_two_step`` runs two loaded generators chained (``ChainedForward``)
-through the same loop, as ``two_step_test.py`` does.
+``test_two_step`` runs two loaded generators chained (``ChainedForward``,
+one program for the whole chain) through the same loop, as
+``two_step_test.py`` does.
 """
 
 from __future__ import annotations
@@ -23,7 +29,10 @@ from __future__ import annotations
 import concurrent.futures as cf
 import json
 import os
-from collections import deque
+import threading
+import time
+import weakref
+from collections import defaultdict, deque
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +41,9 @@ import torch
 from tactile_gan_torch.core.config import TrainConfig
 from tactile_gan_torch.core.device import DEFAULT_DEVICE, resolve_device
 from tactile_gan_torch.data.dataset import PairedDataset
+from tactile_gan_torch.eval.graph import (  # noqa: F401 -- the runner's names
+    ServingPrograms, fuzzy_sums, normalize_u8, quantize_u8,
+)
 from tactile_gan_torch.eval.metrics import eval_pair
 from tactile_gan_torch.eval.visualize import (
     can_plot, compose_channels, concat_images, plot_loss, print_evaluation,
@@ -48,15 +60,37 @@ from tactile_gan_torch.utils.io import mkdir
 
 class GeneratorForward:
     """The loaded generator as a callable on NHWC float32 batches that lie
-    on ``device``; runs under inference mode."""
+    on ``device``; runs under inference mode, eagerly (it is what the
+    serving programs capture).
+
+    It owns its serving programs: ``programs()`` for the generator alone,
+    ``chain_programs(second)`` for it chained before ``second``'s. Both
+    die with the forward; a chain's die with either stage."""
 
     def __init__(self, gen: torch.nn.Module, device: torch.device):
         self.gen = gen
         self.device = device
+        self._programs: Optional[ServingPrograms] = None
+        # Keyed weakly by stage 2; a value holds the two generators, never
+        # a forward, so an entry expires with stage 2.
+        self._chains = weakref.WeakKeyDictionary()
 
     def __call__(self, src_f32: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             return self.gen(src_f32)
+
+    def programs(self) -> ServingPrograms:
+        if self._programs is None:
+            self._programs = ServingPrograms(self.gen, self.device)
+        return self._programs
+
+    def chain_programs(self, second: "GeneratorForward") -> ServingPrograms:
+        progs = self._chains.get(second)
+        if progs is None:
+            progs = ServingPrograms(torch.nn.Sequential(self.gen, second.gen),
+                                    self.device)
+            self._chains[second] = progs
+        return progs
 
 
 def load_model(model_path: str, cfg: TrainConfig,
@@ -101,36 +135,20 @@ class ChainedForward:
                              f"{forward2.device}; load both on one device")
         self.forward1, self.forward2 = forward1, forward2
         self.device = forward1.device
+        self.gen = torch.nn.Sequential(forward1.gen, forward2.gen)
 
     def __call__(self, src_f32: torch.Tensor) -> torch.Tensor:
         return self.forward2(self.forward1(src_f32))
+
+    def programs(self) -> ServingPrograms:
+        """The whole chain as one program a mode, kept on stage 1: a new
+        ``ChainedForward`` on the same pair captures nothing."""
+        return self.forward1.chain_programs(self.forward2)
 
 
 def load_arrays(path: str) -> dict:
     return {k: np.load(os.path.join(path, f"{k}loss.npy"))
             for k in ("gen", "disc", "l1", "gp", "per")}
-
-
-def quantize_u8(x: torch.Tensor) -> torch.Tensor:
-    """round_half_even(clip(x, 0, 1) * 255) in float64: bit-exact with the
-    host writers' ``visualize._u8`` (torch.round rounds half to even)."""
-    return torch.round(torch.clamp(x.double(), 0.0, 1.0) * 255.0).to(torch.uint8)
-
-
-def fuzzy_sums(out: torch.Tensor, tgt_u8: torch.Tensor) -> torch.Tensor:
-    """Per-image (B, 4) float64: [sum(min(o, r)), sum(r), sum(o*r),
-    sum(o^2 + r^2)], the four sums of ``eval_pair``'s fuzzy branch, with r
-    the float32 target k/255 as the host computes it."""
-    o = out.double()
-    r = (tgt_u8.float() / 255.0).double()
-    dims = tuple(range(1, o.dim()))
-    return torch.stack([torch.minimum(o, r).sum(dims), r.sum(dims),
-                        (o * r).sum(dims), (o * o + r * r).sum(dims)], dim=1)
-
-
-def normalize_u8(src_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 image -> [-1, 1] float32, the training preprocessing."""
-    return src_u8.float() / 255.0 * 2.0 - 1.0
 
 
 def metrics_from_sums(s) -> dict:
@@ -156,19 +174,44 @@ def _write_case(i: int, src: np.ndarray, tgt: np.ndarray, out: np.ndarray,
             os.path.join(output_path, "elm", f"{i + 1}.png"))
 
 
-def test_model(forward: GeneratorForward, dataset, output_path: str,
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor as a host array (blocks until it is computed)."""
+    return t.cpu().numpy()
+
+
+def test_model(forward, dataset, output_path: str,
                evaluation: bool = False, target_mode: str = "rgb",
-               eval_batch: int = 1, threads: int = 4, transfer: str = "u8"
+               eval_batch: int = 1, threads: int = 4, transfer: str = "u8",
+               graphed: bool = True
                ) -> Tuple[List[float], List[float], List[float]]:
     """Run every pair of ``dataset`` and write out/, sgt/ (and elm/ for
     'ch'). ``eval_batch`` > 1 batches the forward and pads the tail by
-    repeating its last pair; metrics and artifacts are the same either way.
+    repeating its last pair (one program shape a run); metrics and
+    artifacts are the same either way.
 
     ``transfer`` picks what comes back to the host: "u8" quantizes on the
     device and returns the metric sums; "f32" returns the float32 outputs
-    and computes metrics and quantization on the host in float64."""
+    and computes metrics and quantization on the host in float64.
+    ``forward`` is a ``GeneratorForward`` or a ``ChainedForward``; its
+    programs serve the batches. ``graphed=False`` runs the same programs
+    eagerly on the card (the reference the graphs are held to)."""
     if transfer not in ("u8", "f32"):
         raise ValueError(f"unknown eval transfer mode: {transfer!r}")
+    # TACTILE_EVAL_TIMING=1: host seconds of each stage (threads included),
+    # printed per image at the end, in the JAX runner's names and format.
+    timing = defaultdict(float) if os.environ.get("TACTILE_EVAL_TIMING") \
+        else None
+    timing_lock = threading.Lock()
+
+    def timed(label, fn, *a):
+        if timing is None:
+            return fn(*a)
+        t0 = time.perf_counter()
+        res = fn(*a)
+        with timing_lock:
+            timing[label] += time.perf_counter() - t0
+        return res
+
     for sub in ("out", "sgt", "elm"):
         mkdir(os.path.join(output_path, sub))
     accuracy, dice, jaccard = [], [], []
@@ -178,7 +221,10 @@ def test_model(forward: GeneratorForward, dataset, output_path: str,
     chunks = [list(range(s, min(s + eval_batch, n)))
               for s in range(0, n, eval_batch)]
     want_sums = transfer == "u8" and evaluation
+    mode = "u8_eval" if want_sums else transfer
     dev = forward.device
+    programs = (forward.programs() if graphed else
+                ServingPrograms(forward.gen, dev, graphed=False))
 
     def pad(arrs):
         stacked = np.stack(arrs)
@@ -186,6 +232,9 @@ def test_model(forward: GeneratorForward, dataset, output_path: str,
             stacked = np.concatenate(
                 [stacked, np.repeat(stacked[-1:], eval_batch - len(arrs), 0)])
         return stacked
+
+    def upload(arr):
+        return torch.from_numpy(arr).to(dev)
 
     # CPU-bound pools never exceed the core count.
     host_par = max(1, min(threads, os.cpu_count() or threads))
@@ -195,17 +244,21 @@ def test_model(forward: GeneratorForward, dataset, output_path: str,
             cf.ThreadPoolExecutor(max_workers=host_par) as worker:
 
         def assemble(idxs):
-            pairs = list(decode.map(dataset.load_pair, idxs))
-            src = torch.from_numpy(pad([p[0] for p in pairs])).to(dev)
-            tgt = (torch.from_numpy(pad([p[1] for p in pairs])).to(dev)
+            # The staging thread uploads into tensors of its own; the
+            # program copies them into its static inputs.
+            pairs = timed("decode",
+                          lambda: list(decode.map(dataset.load_pair, idxs)))
+            tgt = (timed("h2d_tgt", upload, pad([p[1] for p in pairs]))
                    if want_sums else None)
-            return idxs, pairs, src, tgt
+            return idxs, pairs, timed("h2d_src", upload,
+                                      pad([p[0] for p in pairs])), tgt
 
         writes, metrics = [], []
 
-        def drain(idxs, pairs, dev_out, dev_sums):
-            outs = dev_out.cpu().numpy()
-            sums = dev_sums.cpu().numpy() if dev_sums is not None else None
+        def drain(idxs, pairs, dev_out, dev_sums=None):
+            outs = timed("d2h_out", to_host, dev_out)
+            sums = (timed("d2h_sums", to_host, dev_sums)
+                    if dev_sums is not None else None)
             for k, i in enumerate(idxs):
                 out, tgt_u8 = outs[k], pairs[k][1]
                 if evaluation:
@@ -215,26 +268,31 @@ def test_model(forward: GeneratorForward, dataset, output_path: str,
                         metrics.append(worker.submit(
                             eval_pair, tgt_u8.astype(np.float32) / 255.0, out))
                 writes.append(worker.submit(
-                    _write_case, i, pairs[k][0], tgt_u8, out, output_path,
-                    target_mode))
+                    timed, "write", _write_case, i, pairs[k][0], tgt_u8, out,
+                    output_path, target_mode))
 
+        t_start = time.perf_counter()
         pending = staging.submit(assemble, chunks[0])
         drains = deque()
         for ci in range(len(chunks)):
-            idxs, pairs, src_u8, tgt_u8 = pending.result()
-            if ci + 1 < len(chunks):
+            idxs, pairs, src_u8, tgt_u8 = timed("wait_staging",
+                                                pending.result)
+            # Staging runs one batch ahead of the dispatch, except while a
+            # dispatch captures: nothing else may touch the card then.
+            ahead = ci + 1 < len(chunks)
+            after = ahead and programs.will_capture(mode, src_u8, tgt_u8)
+            if ahead and not after:
                 pending = staging.submit(assemble, chunks[ci + 1])
-            out = forward(normalize_u8(src_u8))
-            if transfer == "f32":
-                dev_out, dev_sums = out, None
-            else:
-                dev_out = quantize_u8(out)
-                dev_sums = fuzzy_sums(out, tgt_u8) if want_sums else None
-            drains.append(d2h.submit(drain, idxs, pairs, dev_out, dev_sums))
+            # The program's outputs are tensors of their own (cloned after
+            # the replay, on its stream, which the drain's copy follows).
+            outs = timed("dispatch", programs, mode, src_u8, tgt_u8)
+            if after:
+                pending = staging.submit(assemble, chunks[ci + 1])
+            drains.append(d2h.submit(drain, idxs, pairs, *outs))
             while len(drains) > 4:  # cap live device output buffers
-                drains.popleft().result()
+                timed("wait_drain", drains.popleft().result)
         for f in drains:
-            f.result()
+            timed("wait_drain", f.result)
         for f in metrics:
             res = f.result() if isinstance(f, cf.Future) else f
             accuracy.append(float(res["accuracy"]))
@@ -242,6 +300,12 @@ def test_model(forward: GeneratorForward, dataset, output_path: str,
             jaccard.append(float(res["jaccard"]))
         for w in writes:
             w.result()
+        if timing is not None:
+            wall = time.perf_counter() - t_start
+            parts = " ".join(f"{k}={v * 1e3 / n:.1f}"
+                             for k, v in sorted(timing.items()))
+            print(f"[eval timing] n={n} wall/img={wall * 1e3 / n:.1f} ms | "
+                  f"per-img ms: {parts}", flush=True)
     return accuracy, dice, jaccard
 
 
@@ -267,12 +331,13 @@ def report_evaluation(accuracy, dice, jaccard, output_path: str) -> None:
 def evaluate_folder(folder: str, work_root: str = ".",
                     data_override: Optional[str] = None,
                     eval_batch: int = 1, transfer: str = "u8",
-                    device=DEFAULT_DEVICE) -> Optional[dict]:
+                    device=DEFAULT_DEVICE, graphed: bool = True
+                    ) -> Optional[dict]:
     """The test.py flow: params.txt, model, data and loss arrays; the loss
     plot; the run; eval.txt and the distribution plots.
 
     On a host without matplotlib the plots are skipped with a note; every
-    other artifact is written as usual."""
+    other artifact is written as usual. ``graphed`` is ``test_model``'s."""
     params_path = os.path.join(work_root, "models", folder.split("/")[-1],
                                "params.txt")
     cfg = TrainConfig.from_params_file(params_path)
@@ -305,7 +370,8 @@ def evaluate_folder(folder: str, work_root: str = ".",
     accuracy, dice, jaccard = test_model(
         forward, dataset, output_path, evaluation=True,
         target_mode=cfg.target, eval_batch=eval_batch,
-        threads=max(1, min(cfg.threads, 8)), transfer=transfer)
+        threads=max(1, min(cfg.threads, 8)), transfer=transfer,
+        graphed=graphed)
     if accuracy:
         report_evaluation(accuracy, dice, jaccard, output_path)
         return {"accuracy": float(np.mean(accuracy)),

@@ -6,7 +6,11 @@
 Builds the ``--gen`` generator (UNet++, UNet or BCDUNet; UNet++ by default)
 at nf=64 and 256x256 with N(0, 0.02) weights from ``--seed`` and the
 default bfloat16 compute. The default mode runs
-``--reps`` forwards per batch size under ``torch.profiler``; ``--train``
+``--reps`` forwards per batch size under ``torch.profiler``, then the
+``u8_eval`` serving program (``eval/graph.py``: normalize, the forward, the
+uint8 quantize and the metric sums) at the same batch, run op by op and as
+the runner dispatches it (a CUDA graph replay and its copies, with the
+capture's host seconds); ``--train``
 runs ``--reps`` steady-state training steps at the defaults (batch 4, the
 PatchGAN discriminator, GP, the v1 perceptual loss on the seeded VGG
 fallback, label smoothing, Adam) on a fixed random batch, twice: as the
@@ -63,6 +67,8 @@ LIBRARY_CONV = ("conv", "xmma", "cudnn", "cutlass", "gemm", "sm90_", "sm80_")
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                  "cudaLaunchCooperativeKernel", "cuLaunchKernel",
                  "cuLaunchKernelEx", "cudaGraphLaunch")
+# The host-side calls that enqueue a copy (counted apart from launches).
+HOST_COPIES = ("cudaMemcpyAsync",)
 
 
 class StepTimer:
@@ -200,12 +206,17 @@ def profile_calls(fn, reps: int, warmup: int = 3) -> Dict[str, object]:
     ends = [e.time_range.end for e in events]
     window = (max(ends) - min(starts)) if starts else wall_ms * 1e3
     launched: Dict[str, int] = {}
+    copies: Dict[str, int] = {}
     for e in events:
-        if (e.device_type == torch.autograd.DeviceType.CPU
-                and e.name in HOST_LAUNCHES):
-            launched[e.name] = launched.get(e.name, 0) + 1
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        for names, counts in ((HOST_LAUNCHES, launched),
+                              (HOST_COPIES, copies)):
+            if e.name in names:
+                counts[e.name] = counts.get(e.name, 0) + 1
     res = {"wall_ms": wall_ms / reps,
-           "host_launches": {k: v / reps for k, v in sorted(launched.items())}}
+           "host_launches": {k: v / reps for k, v in sorted(launched.items())},
+           "host_copies": {k: v / reps for k, v in sorted(copies.items())}}
     res.update(breakdown(kernels, window, reps))
     return res
 
@@ -213,6 +224,23 @@ def profile_calls(fn, reps: int, warmup: int = 3) -> Dict[str, object]:
 def profile_forward(forward, x, reps: int) -> Dict[str, object]:
     res = {"batch": int(x.shape[0])}
     res.update(profile_calls(lambda: forward(x), reps))
+    return res
+
+
+def profile_u8_eval(forward, src_u8, tgt_u8, reps: int) -> Dict[str, object]:
+    """The ``u8_eval`` program on one batch, op by op and through the
+    forward's graphed programs (its first call captures)."""
+    from tactile_gan_torch.eval.graph import ServingPrograms
+
+    eager = ServingPrograms(forward.gen, forward.device, graphed=False)
+    graphed = forward.programs()
+    res = {"eager": profile_calls(lambda: eager("u8_eval", src_u8, tgt_u8),
+                                  reps),
+           "graphed": profile_calls(
+               lambda: graphed("u8_eval", src_u8, tgt_u8), reps)}
+    (prog,) = [p for key, p in graphed.programs.items()
+               if key[1][0] == tuple(src_u8.shape)]
+    res["graphed"]["capture_s"] = prog.capture_s
     return res
 
 
@@ -312,6 +340,10 @@ def main(argv=None) -> int:
             x = torch.rand((b, cfg.image_size, cfg.image_size, 3), device=dev,
                            generator=rng) * 2 - 1
             res = {"gen": cfg.gen, **profile_forward(forward, x, args.reps)}
+            src, tgt = (torch.randint(0, 256, x.shape, generator=rng,
+                                      device=dev, dtype=torch.uint8)
+                        for _ in range(2))
+            res["u8_eval"] = profile_u8_eval(forward, src, tgt, args.reps)
             results.append(res)
             print(json.dumps(res), flush=True)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
