@@ -196,6 +196,18 @@ Phases, each raising on failure (each prints its seconds):
      nf 8, 64x64, batch 2 on the card (FlopCounterMode plus the conv
      wrappers' counts) must equal the CPU's through the plain versions.
      The line is printed and written to bench.json beside --out.
+ 13. quality (run right after train): ``tactile_gan_torch.cli.quality``,
+     the port of scripts/quality_run.sh, at --batch 4 --version 2 --epochs
+     30 --seed 21 in a temporary work root: the synthetic chart set (96
+     training and 16 test pairs at 256x256), UNet++ nf 64 trained for 30
+     epochs graphed, the folder served through cli.test at eval_batch 1
+     (graphed). Exactly 30 A, 30 C, 9 B, 9 B-dx and 9 D launches a
+     training step and 30 A and 9 B a served image; every loss of every
+     epoch finite; L1 at the last epoch at most a quarter of the first;
+     mean Dice at or above QUALITY_DICE_FLOOR = 0.9850, the JAX package's
+     record of this config on a TPU (0.9950, BASELINE.md) less 0.01, a
+     margin that the port's two-seed spread must sit well inside. The
+     run's JSON line is printed.
 
 Then, not a gate, one call of kernel A and one of C are captured into a
 CUDA graph (torch.cuda.graph) and replayed; whether each captures is
@@ -3228,6 +3240,59 @@ def phase_bench(torch, args, record):
     return res
 
 
+QUALITY_ARGV = ["--batch", "4", "--version", "2", "--epochs", "30",
+                "--seed", "21"]
+QUALITY_DICE_FLOOR = 0.9950 - 0.01
+QUALITY_L1_DROP = 4.0
+# cli.quality names each count by its wrapper (train/graph.py's
+# LAUNCH_COUNTERS); the two that this script names otherwise.
+WRAPPER_KEYS = {"backward_kernel": "instance_norm_act_backward",
+                "dgrad_kernel": "conv3x3_dgrad"}
+
+
+def phase_quality(torch, ka, kb, kd, record):
+    """cli.quality at scripts/quality_run.sh's b4 --version 2 config on
+    cuda in a temporary work root, the launch counters set to 0 just before
+    and read just after: exact launches a step and a served image, finite
+    losses, L1 down by QUALITY_L1_DROP, Dice at or above its floor."""
+    from tactile_gan_torch.cli import quality
+
+    torch.backends.cudnn.allow_tf32 = True  # as a user runs it
+    with tempfile.TemporaryDirectory() as work:
+        reset_counts(ka, kb, kd)
+        res = quality.main(QUALITY_ARGV + ["--work", work])
+        torch.cuda.synchronize()
+        counts = launch_counts(ka, kb, kd)
+        torch.backends.cudnn.allow_tf32 = False
+        model_dir = os.path.join(work, "models", res["config"]["tag"])
+        losses = {name: np.load(os.path.join(model_dir, f"{name}loss.npy"))
+                  for name in ("gen", "disc", "l1", "per", "gp")}
+    served = res["config"]["n_test"]  # one forward an image at eval_batch 1
+    want = {k: v * res["steps"] for k, v in PER_STEP.items()}
+    want["instance_norm_act"] += A_PER_FORWARD * served
+    want["conv3x3"] += B_PER_FORWARD * served
+    checks = {
+        "launches": counts == want,
+        "launches a step": {WRAPPER_KEYS.get(k, k): v for k, v in
+                            res["launches_per_step"].items()}
+        == {k: float(v) for k, v in PER_STEP.items()},
+        "finite losses": all(len(v) == res["config"]["epochs"]
+                             and np.all(np.isfinite(v))
+                             for v in losses.values()),
+        f"L1 down {QUALITY_L1_DROP:g}x": (res["l1_last"] * QUALITY_L1_DROP
+                                          <= res["l1_first"]),
+        f"Dice >= {QUALITY_DICE_FLOOR:.4f}": res["dice"] >= QUALITY_DICE_FLOOR,
+    }
+    print(f"quality: {json.dumps(res)}", flush=True)
+    print(f"quality: launches {counts}; checks {checks}", flush=True)
+    record["quality"] = {"line": res, "launches": counts, "checks": checks}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"quality: failed {failed}; launches {counts}, "
+                             f"expected {want}")
+    return {"launches": counts}
+
+
 def phase_probe(torch, ka, kb, kd, record, parent):
     """The conv probe entry point at its defaults on cuda with the launch
     counters around it; then kernel E, through both names, against its
@@ -3443,6 +3508,7 @@ def main() -> int:
                                     torch, ka, kb, kd, args.seed, record,
                                     parent)
     train = timed("train", phase_train, torch, ka, kb, kd, args, record)
+    quality = timed("quality", phase_quality, torch, ka, kb, kd, record)
     serve = timed("serve", phase_serve, torch, ka, kb, args, record)
     timed("other_widths", phase_nf, torch, ka, kb, kd, args, record)
     probe = timed("probe_conv", phase_probe, torch, ka, kb, kd, record,
@@ -3459,10 +3525,14 @@ def main() -> int:
                      record)
 
     # Launches over the main paths: the training run, the trained folder
-    # served, and the serving runs; kernel E's in the conv probe.
+    # served, the quality run, and the serving runs; kernel E's in the conv
+    # probe.
     launches = dict(train["launches"])
     for k in ("instance_norm_act", "conv3x3"):
         launches[k] += train["serve_launches"][k]
+    # The quality run: 30 epochs trained, then served.
+    for k in launches:
+        launches[k] += quality["launches"][k]
     launches["instance_norm_act"] += sum(r["launches_a"] for r in serve["runs"])
     launches["conv3x3"] += sum(r["launches_b"] for r in serve["runs"])
     for k in ("conv3x3_p1", "conv3x3_p1_h"):

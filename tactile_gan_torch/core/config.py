@@ -192,7 +192,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_interval", type=int, default=-1,
                    help="epochs between intermediate checkpoints (-1 = none)")
     p.add_argument("--continue_training", default=False, action="store_true",
-                   help="load a checkpoint written by the port before training")
+                   help="load pretrained weights before training")
     p.add_argument("--reg_every", type=int, default=1,
                    help="apply gradient-penalty regularization on epochs divisible by this")
     p.add_argument("--seed", type=int, default=21, help="random seed")

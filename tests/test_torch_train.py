@@ -637,6 +637,21 @@ def test_train_cli_flags(tmp_path, capsys):
             Trainer(cfg, ds)
 
 
+def test_continue_training_help_is_the_jax_packages():
+    """The trainer resumes both packages' final_model.pth, so the flag says
+    what the JAX flag says."""
+    from tactile_gan_tpu.core.config import build_arg_parser as jax_parser
+    from tactile_gan_torch.core.config import build_arg_parser
+
+    def help_of(parser):
+        action, = [a for a in parser._actions
+                   if "--continue_training" in a.option_strings]
+        return action.help
+
+    assert help_of(build_arg_parser()) == help_of(jax_parser())
+    assert help_of(jax_parser()) == "load pretrained weights before training"
+
+
 def test_profile_families_tell_the_training_kernels_apart():
     from tactile_gan_torch.utils import profiling
 
