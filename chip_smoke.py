@@ -39,7 +39,13 @@ Phases, each raising on failure (each prints its seconds):
      the merge), on C (the same, and its streamed part left unwritten), two
      on the wgmma forward's output, two on B-dx (x 1.01, one Co tile left
      unwritten) and three on the wgmma weight gradient must fail the
-     per-shape check; where --baseline gives the parent's JSON from the same
+     per-shape check; the training step's A, C, B, B-dx and D also on bf16
+     activations (what --bf16_resident gives them), timed beside their
+     bf16 bound, each bf16 output within 2^-7 of itself plus 2^-9 of the
+     largest entry (``check_bf16``), two faults planted on each (x (1 +
+     2^-6); the entries under a quarter of the largest x (1 + 2^-4)) and
+     one on D's bf16 run (x (1 + 2^-10)) failing the check; where
+     --baseline gives the parent's JSON from the same
      call, the rows of A, C, B, B-dx and D (and E in phase 6) print the
      parent's time beside their own;
   3. train: synthetic chart pairs are written as data/train under a
@@ -208,6 +214,23 @@ Phases, each raising on failure (each prints its seconds):
      record of this config on a TPU (0.9950, BASELINE.md) less 0.01, a
      margin that the port's two-seed spread must sit well inside. The
      run's JSON line is printed.
+ 14. resident (run right after graph_vs_eager): train.py's defaults with
+     --bf16_resident --disc_bf16 (bf16 activations in every UNet++ row and
+     in D) beside the default step, each through
+     ``utils/profiling.py``'s ``fixed_step``, graphed: exactly 30 A, 30 C,
+     9 B, 9 B-dx and 9 D launches a step over RESIDENT_STEPS steps, every
+     one of the resident step's on bf16 activations (the wrappers'
+     ``.bf16_launches``) and none of the default's; ms a step, busy,
+     idle share, peak memory and the device ms by kernel family of both
+     under the profiler; RESIDENT_BIT_STEPS graphed resident steps equal
+     to as many eager ones bit for bit (cuDNN deterministic), the stale
+     relayout planted on the graphed run breaking that; one resident step
+     on the card against the CPU's (nf 16, 64x64, batch 2, lr 0), read
+     over whole networks (RESIDENT_STATS), within RESIDENT_FACTOR times a
+     floor measured in the same run, three faults planted in the kernels
+     outside it (C's dx x 1.1, B-dx and D x 1.25). The kernels' bf16
+     shapes are checked in phase 2, and phase 11's dry runs run the dry
+     run's phase 2 resident.
 
 Then, not a gate, one call of kernel A and one of C are captured into a
 CUDA graph (torch.cuda.graph) and replayed; whether each captures is
@@ -849,31 +872,93 @@ def plant_wgrad_faults(torch, kd, x, g, want):
     return out
 
 
+# bf16 outputs (A, C's dx, B and B-dx on bf16 activations): the kernel and
+# its plain version each round a float32 result to bf16, so an entry may
+# differ by one bf16 step, 2^-7 of its value at most; BF16_ATOL_SHARE of
+# the largest entry covers the entries that cancellation leaves near zero.
+# Two faults planted on each kernel's output must fail the check: every
+# entry x (1 + 2^-6), and only the entries under a quarter of the largest
+# x (1 + 2^-4).
+BF16_RTOL, BF16_ATOL_SHARE = 2.0 ** -7, 2.0 ** -9
+
+
+def check_bf16(name, got, want):
+    """A bf16 output against its plain version: each entry within
+    BF16_RTOL of itself plus BF16_ATOL_SHARE of the largest |entry|.
+    Returns (max |diff|, the largest diff's share of its limit)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    limit = BF16_RTOL * w.abs() + BF16_ATOL_SHARE * w.abs().max()
+    share = (err / limit).max().item()
+    if not (math.isfinite(share) and share <= 1):
+        raise AssertionError(f"{name}: kernel and plain version disagree, "
+                             f"max |diff| / limit {share:.3f} (rtol 2^-7, "
+                             "atol 2^-9 of the largest entry)")
+    return err.max().item(), share
+
+
+def plant_bf16_faults(torch, where, got, want):
+    """The two faults of check_bf16 on ``got``; each must fail it."""
+    g, w = got.float(), want.float()
+    small = w.abs() < w.abs().max() / 4
+    out = {}
+    for name, bad in (("x (1 + 2^-6)", g * (1 + 2.0 ** -6)),
+                      ("entries under max/4 x (1 + 2^-4)",
+                       torch.where(small, g * (1 + 2.0 ** -4), g))):
+        try:
+            check_bf16(f"planted {name}", bad, want)
+        except AssertionError:
+            out[name] = "caught"
+            continue
+        raise AssertionError(f"planted fault {name} on {where} passed the "
+                             "bf16 check")
+    print(f"planted faults on {where}: {out}", flush=True)
+    return out
+
+
 def phase_train_kernels(torch, ka, kb, kd, seed, record, parent):
-    """Kernels C, B-dx and D against their plain versions at every shape of
-    a training step (batch 4, float32 activations, bf16 conv operands), with
-    times; then B's forward at the training shapes of nf 32 and 16 (Co 32
-    and 16). ``parent``: the parent's rows by kernel, printed beside B-dx's
-    and D's."""
+    """Kernels A, C, B-dx and D against their plain versions at every shape
+    of a training step (batch 4), float32 and bf16 activations (the second
+    what --bf16_resident gives them), bf16 conv operands, with times; B's
+    forward checked on both; then B's forward at the training shapes of
+    nf 32 and 16 (Co 32 and 16). ``parent``: the parent's rows by kernel,
+    printed beside the float32 rows."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     dev = "cuda"
-    c_rows, c_bf16_rows, dx_rows, d_rows = [], [], [], []
+    rows = {k: [] for k in ("c", "c_bf16", "a_bf16", "dx", "dx_bf16", "d",
+                            "d_bf16")}
+    faults = record.setdefault("bf16_faults", {})
     for ((h, w, c), per_step), dt in [(r, dt) for dt in (torch.float32,
                                                          torch.bfloat16)
                                       for r in A_SHAPES]:
         dn = str(dt).split(".")[1]
+        bf16 = dt == torch.bfloat16
         shape = (TRAIN_BATCH, h, w, c)
         x = (torch.randn(shape, device=dev, generator=gen) * 2 + 0.5).to(dt)
         g = torch.randn(shape, device=dev, generator=gen).to(dt)
         s = 1 + 0.1 * torch.randn(c, device=dev, generator=gen)
         o = 0.1 * torch.randn(c, device=dev, generator=gen)
-        _, st = ka.forward_kernel(x, s, o, "relu", 0.2)
+        y, st = ka.forward_kernel(x, s, o, "relu", 0.2)
         got = ka.backward_kernel(x, g, st, s, o, "relu", 0.2)
         torch.cuda.synchronize()
         want = ka.instance_norm_act_backward_plain(x, g, st, s, o, act="relu")
-        err = check_close(f"C {shape} {dn}", got[0], want[0], dn)
+        if bf16:
+            # A's forward as the resident step runs it (bf16 in and out).
+            want_y = ka.instance_norm_act_plain(x, s, o, act="relu")
+            err_a, share_a = check_bf16(f"A {shape} bf16", y, want_y)
+            err, share = check_bf16(f"C {shape} bf16", got[0], want[0])
+            if y.dtype != dt or got[0].dtype != dt:
+                raise AssertionError(f"A/C {shape} bf16: outputs "
+                                     f"{y.dtype}, {got[0].dtype}")
+            if h == FULL_RES:
+                faults["A"] = plant_bf16_faults(torch, "kernel A (bf16)", y,
+                                                want_y)
+                faults["C"] = plant_bf16_faults(torch, "kernel C (bf16)",
+                                                got[0], want[0])
+        else:
+            err = check_close(f"C {shape} {dn}", got[0], want[0], dn)
         for name, a, b in zip(("dscale", "doffset"), got[1:], want[1:]):
             check_share(f"C {shape} {dn} {name}", a, b)
         plan = norm_plan(ka, shape, dt, 2)
@@ -893,9 +978,12 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record, parent):
                 want[0], "kernel C")
         nbytes = 3 * x.numel() * x.element_size()
         row = {"shape": list(shape), "dtype": dn,
-               "per_step": per_step, "max_abs_err": err, "tol": TOL[dn],
+               "per_step": per_step, "max_abs_err": err,
+               "tol": "bf16 check" if bf16 else TOL[dn],
                "plan": plan._asdict(),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        if bf16:
+            row["limit_share"] = share
         row["ms"], row["call_ms"] = cuda_ms(
             lambda: ka.backward_kernel(x, g, st, s, o, "relu", 0.2))
         row["plain_ms"], _ = cuda_ms(
@@ -913,13 +1001,35 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record, parent):
         row["gbps"] = nbytes / row["ms"] / 1e6
         row["parent_ms"] = (parent["kernel_c"].get(tuple(row["shape"]))
                             if dn == "float32" else None)
-        (c_rows if dn == "float32" else c_bf16_rows).append(row)
+        rows["c_bf16" if bf16 else "c"].append(row)
         print(f"C {row['shape']} {dn}: max|diff| {err:.3e} ms "
               f"{row['ms']:.4f} ({row['gbps']:.0f} GB/s) parent "
               f"{fmt(row['parent_ms'])} plain {row['plain_ms']:.4f} library "
               f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
               f"({fmt_plan(plan)})", flush=True)
+        if bf16:
+            a_bytes = 2 * x.numel() * x.element_size()
+            a_row = {"shape": list(shape), "dtype": dn, "per_step": per_step,
+                     "max_abs_err": err_a, "limit_share": share_a,
+                     "bound_ms": a_bytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes"}
+            a_row["ms"], _ = cuda_ms(
+                lambda: ka.forward_kernel(x, s, o, "relu", 0.2))
+            a_row["plain_ms"], _ = cuda_ms(
+                lambda: ka.instance_norm_act_plain(x, s, o, act="relu"))
+            xn = x.permute(0, 3, 1, 2)
+            a_row["library_ms"], _ = cuda_ms(lambda: torch.relu(
+                F.instance_norm(xn, weight=s, bias=o, eps=ka.EPS)))
+            rows["a_bf16"].append(a_row)
+            print(f"A train {a_row['shape']} bf16: max|diff| {err_a:.3e} "
+                  f"({share_a:.3f} of its limit) ms {a_row['ms']:.4f} plain "
+                  f"{a_row['plain_ms']:.4f} library "
+                  f"{a_row['library_ms']:.4f} bound {a_row['bound_ms']:.4f}",
+                  flush=True)
+            print(f"C {row['shape']} bf16: {share:.3f} of its limit",
+                  flush=True)
 
+    cd = torch.bfloat16
     for cin, per_step in B_CINS:
         pix = TRAIN_BATCH * FULL_RES * FULL_RES
         x = torch.randn((TRAIN_BATCH, FULL_RES, FULL_RES, cin), device=dev,
@@ -927,7 +1037,7 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record, parent):
         g = torch.randn((TRAIN_BATCH, FULL_RES, FULL_RES, 64), device=dev,
                         generator=gen)
         wt = 0.05 * torch.randn((64, cin, 3, 3), device=dev, generator=gen)
-        cd = torch.bfloat16
+        first = cin == B_CINS[0][0]
         # B's forward as the training step runs it: through the autograd
         # Function with grad enabled, float32 and bf16 activations.
         for xin in (x, x.to(cd)):
@@ -937,74 +1047,118 @@ def phase_train_kernels(torch, ka, kb, kd, seed, record, parent):
             torch.cuda.synchronize()
             if y.grad_fn is None:
                 raise AssertionError("B forward under grad gave no grad_fn")
-            err = check_close(f"B train cin {cin} {dn}", y.detach(),
-                              kb.conv3x3_plain(xin, wt, compute_dtype=cd), dn)
+            want = kb.conv3x3_plain(xin, wt, compute_dtype=cd)
+            if xin.dtype == cd:
+                err, share = check_bf16(f"B train cin {cin} bf16", y.detach(),
+                                        want)
+                if first:
+                    faults["B"] = plant_bf16_faults(torch, "kernel B (bf16)",
+                                                    y.detach(), want)
+                note = f" ({share:.3f} of its limit)"
+            else:
+                err = check_close(f"B train cin {cin} {dn}", y.detach(), want,
+                                  dn)
+                note = ""
             print(f"B train fwd cin {cin} {dn} "
-                  f"({kb.forward_entry(cin, 64, cd)}): max|diff| {err:.3e}",
-                  flush=True)
-            del y, xg
-        dx = kb.dgrad_kernel(g, wt, cd)
-        dk = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
-        torch.cuda.synchronize()
-        want_dx = kb.conv3x3_dgrad_plain(g, wt, compute_dtype=cd)
-        err_dx = check_close(f"B-dx cin {cin}", dx, want_dx, "float32")
-        if cin == B_CINS[-1][0]:
-            record["dgrad_faults"] = plant_dgrad_faults(torch, kb, g, wt,
-                                                        want_dx)
-        del dx, want_dx
-        want_d = kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd)
-        err_d = check_share(f"D cin {cin}", dk, want_d)
-        dk2 = kd.conv3x3_wgrad(x, g, compute_dtype=cd)
-        if not torch.equal(dk, dk2):
-            raise AssertionError(f"D cin {cin}: two runs differ")
-        if cin == 64:
-            record["wgrad_faults"] = plant_wgrad_faults(torch, kd, x, g,
-                                                        want_d)
-        del dk, dk2, want_d
+                  f"({kb.forward_entry(cin, 64, cd)}): max|diff| {err:.3e}"
+                  f"{note}", flush=True)
+            del y, xg, want
         flops = 2 * pix * 9 * cin * 64
         t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
         xl = x.to(cd).permute(0, 3, 1, 2)
         gl = g.to(cd).permute(0, 3, 1, 2)
         wl = wt.to(cd)
-        for rows, name, err, nbytes, fn, plain, lib in (
-                (dx_rows, "B-dx", err_dx,
-                 (g.numel() + x.numel()) * 4 + 9 * cin * 64 * 2,
-                 lambda: kb.dgrad_kernel(g, wt, cd),
-                 lambda: kb.conv3x3_dgrad_plain(g, wt, compute_dtype=cd),
-                 lambda: torch.nn.grad.conv2d_input(xl.shape, wl, gl,
-                                                    padding=1)),
-                (d_rows, "D", err_d,
-                 (g.numel() + x.numel()) * 4 + 9 * cin * 64 * 4,
-                 lambda: kd.conv3x3_wgrad(x, g, compute_dtype=cd),
-                 lambda: kd.conv3x3_wgrad_plain(x, g, compute_dtype=cd),
-                 lambda: torch.nn.grad.conv2d_weight(xl, wl.shape, gl,
-                                                     padding=1))):
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            row = {"shape": [TRAIN_BATCH, FULL_RES, FULL_RES, cin], "co": 64,
-                   "dtype": "float32", "compute": "bfloat16",
-                   "per_step": per_step, "max_abs_err": err, "flops": flops,
-                   "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-            row["ms"], row["call_ms"] = cuda_ms(fn)
-            row["plain_ms"], _ = cuda_ms(plain)
-            row["library_ms"], _ = cuda_ms(lib)
-            row["tflops"] = flops / row["ms"] / 1e9
-            rows.append(row)
-            row["gbps"] = nbytes / row["ms"] / 1e6
-            row["parent_ms"] = parent[
-                "kernel_b_dx" if name == "B-dx" else "kernel_d"].get(
-                    tuple(row["shape"]))
-            print(f"{name} cin {cin}: max|diff| {err:.3e} ms {row['ms']:.4f} "
-                  f"({row['tflops']:.1f} TFLOP/s, {row['gbps']:.0f} GB/s) "
-                  f"parent {fmt(row['parent_ms'])} plain "
-                  f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} "
-                  f"bound {row['bound_ms']:.4f} ({row['bound_by']})",
-                  flush=True)
+        for dt in (torch.float32, cd):
+            dn = str(dt).split(".")[1]
+            bf16 = dt == cd
+            xs, gs = x.to(dt), g.to(dt)
+            dx = kb.dgrad_kernel(gs, wt, cd)
+            dk = kd.conv3x3_wgrad(xs, gs, compute_dtype=cd)
+            torch.cuda.synchronize()
+            want_dx = kb.conv3x3_dgrad_plain(gs, wt, compute_dtype=cd)
+            if dx.dtype != dt:
+                raise AssertionError(f"B-dx cin {cin} {dn}: dx {dx.dtype}")
+            note = {}
+            if bf16:
+                err_dx, note["B-dx"] = check_bf16(f"B-dx cin {cin} bf16", dx,
+                                                  want_dx)
+                if first:
+                    faults["B-dx"] = plant_bf16_faults(
+                        torch, "kernel B-dx (bf16)", dx, want_dx)
+            else:
+                err_dx = check_close(f"B-dx cin {cin}", dx, want_dx, dn)
+                if cin == B_CINS[-1][0]:
+                    record["dgrad_faults"] = plant_dgrad_faults(
+                        torch, kb, gs, wt, want_dx)
+            del dx, want_dx
+            want_d = kd.conv3x3_wgrad_plain(xs, gs, compute_dtype=cd)
+            err_d = check_share(f"D cin {cin} {dn}", dk, want_d)
+            dk2 = kd.conv3x3_wgrad(xs, gs, compute_dtype=cd)
+            if not torch.equal(dk, dk2):
+                raise AssertionError(f"D cin {cin} {dn}: two runs differ")
+            if cin == 64 and not bf16:
+                record["wgrad_faults"] = plant_wgrad_faults(torch, kd, xs, gs,
+                                                            want_d)
+            if first and bf16:
+                try:
+                    check_share("planted dk x (1 + 2^-10)",
+                                dk * (1 + 2.0 ** -10), want_d)
+                except AssertionError:
+                    faults["D"] = {"dk x (1 + 2^-10)": "caught"}
+                    print(f"planted faults on kernel D (bf16): {faults['D']}",
+                          flush=True)
+                else:
+                    raise AssertionError("planted fault on kernel D (bf16) "
+                                         "passed the per-shape check")
+            del dk, dk2, want_d
+            es = xs.element_size()
+            for key, name, err, nbytes, fn, plain, lib in (
+                    ("dx", "B-dx", err_dx,
+                     (g.numel() + x.numel()) * es + 9 * cin * 64 * 2,
+                     lambda: kb.dgrad_kernel(gs, wt, cd),
+                     lambda: kb.conv3x3_dgrad_plain(gs, wt, compute_dtype=cd),
+                     lambda: torch.nn.grad.conv2d_input(xl.shape, wl, gl,
+                                                        padding=1)),
+                    ("d", "D", err_d,
+                     (g.numel() + x.numel()) * es + 9 * cin * 64 * 4,
+                     lambda: kd.conv3x3_wgrad(xs, gs, compute_dtype=cd),
+                     lambda: kd.conv3x3_wgrad_plain(xs, gs, compute_dtype=cd),
+                     lambda: torch.nn.grad.conv2d_weight(xl, wl.shape, gl,
+                                                         padding=1))):
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                row = {"shape": [TRAIN_BATCH, FULL_RES, FULL_RES, cin],
+                       "co": 64, "dtype": dn, "compute": "bfloat16",
+                       "per_step": per_step, "max_abs_err": err,
+                       "flops": flops, "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": ("operations" if t_ops >= t_bytes
+                                    else "bytes")}
+                if name in note:
+                    row["limit_share"] = note[name]
+                row["ms"], row["call_ms"] = cuda_ms(fn)
+                row["plain_ms"], _ = cuda_ms(plain)
+                row["library_ms"], _ = cuda_ms(lib)
+                row["tflops"] = flops / row["ms"] / 1e9
+                row["gbps"] = nbytes / row["ms"] / 1e6
+                row["parent_ms"] = None if bf16 else parent[
+                    "kernel_b_dx" if name == "B-dx" else "kernel_d"].get(
+                        tuple(row["shape"]))
+                rows[key + "_bf16" if bf16 else key].append(row)
+                print(f"{name} cin {cin} {dn}: max|diff| {err:.3e}"
+                      + (f" ({note[name]:.3f} of its limit)"
+                         if name in note else "")
+                      + f" ms {row['ms']:.4f} ({row['tflops']:.1f} TFLOP/s, "
+                      f"{row['gbps']:.0f} GB/s) parent "
+                      f"{fmt(row['parent_ms'])} plain {row['plain_ms']:.4f} "
+                      f"library {row['library_ms']:.4f} bound "
+                      f"{row['bound_ms']:.4f} ({row['bound_by']})",
+                      flush=True)
     record["kernel_c"], record["kernel_b_dx"], record["kernel_d"] = (
-        c_rows, dx_rows, d_rows)
-    record["kernel_c_bf16"] = c_bf16_rows
+        rows["c"], rows["dx"], rows["d"])
+    for key in ("a", "c", "dx", "d"):
+        record[f"kernel_{'b_dx' if key == 'dx' else key}_bf16"] = \
+            rows[key + "_bf16"]
     record["kernel_b_narrow"] = narrow_b_rows(torch, kb, gen)
-    return c_rows, dx_rows, d_rows
+    return rows
 
 
 # B's forward at the training shapes of nf 32 and 16, (Cin, launches a
@@ -1087,6 +1241,9 @@ def reset_counts(ka, kb, kd):
     kd.conv3x3_wgrad.launches = 0
     kb.conv3x3_p1.launches = kb.conv3x3_p1_h.launches = 0
     kb.conv3x3.flops = kb.dgrad_kernel.flops = kd.conv3x3_wgrad.flops = 0
+    for fn in (ka.instance_norm_act, ka.backward_kernel, kb.conv3x3,
+               kb.dgrad_kernel, kd.conv3x3_wgrad):
+        fn.bf16_launches = 0
 
 
 def train_run(torch, ka, kb, kd, root, folder, args, extra=(),
@@ -1350,68 +1507,85 @@ def step_faults(ka, kb):
             "D last tile dropped": (kb, "conv3x3_wgrad", d_last_tile_dropped)}
 
 
+STEP_NF, STEP_SIZE, STEP_BATCH = 16, 64, 2
+
+
+def step_grads(torch, args, cfg, dev, eps=0.0, perturb_seed=0):
+    """(losses, {"G"|"D": {name: grad}}) of one step of ``cfg`` (nf 16,
+    64x64, batch 2) on dev from seeded weights, a seeded uint8 batch and
+    injected draws, every weight scaled by (1 + eps N(0, 1)) when eps is
+    given. Learning rate 0: both sides score G against the same D (Adam's
+    first update is about lr * sign(grad), which would turn rounding noise
+    in near-zero D gradients into 2 lr weight differences)."""
+    from tactile_gan_torch.models.blocks import init_weights
+    from tactile_gan_torch.models.factory import networks
+    from tactile_gan_torch.models.vgg import load_vgg_features
+    from tactile_gan_torch.train.state import TrainState, make_optimizer
+    from tactile_gan_torch.train.step import build_train_step
+
+    batch, size = STEP_BATCH, STEP_SIZE
+    rng = np.random.default_rng(args.seed + 11)
+    src, tgt = (torch.from_numpy(rng.integers(
+        0, 255, (batch, size, size, 3), dtype=np.uint8)) for _ in range(2))
+    noise = torch.from_numpy(rng.standard_normal((batch, 9, 9, 1))
+                             .astype(np.float32))
+    alpha = torch.from_numpy(rng.uniform(size=(batch, 1, 1, 1))
+                             .astype(np.float32))
+    gen, disc = networks(cfg)
+    init_weights(gen, torch.Generator().manual_seed(args.seed + 12))
+    init_weights(disc, torch.Generator().manual_seed(args.seed + 13))
+    if eps:
+        g = torch.Generator().manual_seed(args.seed + perturb_seed)
+        with torch.no_grad():
+            for p in list(gen.parameters()) + list(disc.parameters()):
+                p.mul_(1 + eps * torch.randn(p.shape, generator=g))
+    gen.to(dev)
+    disc.to(dev)
+    opt_g = make_optimizer(gen.parameters(), cfg.lr, cfg.beta1)
+    opt_d = make_optimizer(disc.parameters(), cfg.lr, cfg.beta1)
+    grads = {}
+    for name, opt, model in (("G", opt_g, gen), ("D", opt_d, disc)):
+        names = [n for n, _ in model.named_parameters()]
+
+        def hook(o, _args, _kwargs, name=name, names=names):
+            grads[name] = {n: p.grad.detach().cpu().clone() for n, p in
+                           zip(names, o.param_groups[0]["params"])}
+        opt.register_step_pre_hook(hook)
+    step = build_train_step(cfg, lambda _step: 0.0,
+                            load_vgg_features(device=dev))
+    losses = step(TrainState(gen, disc, opt_g, opt_d), src.to(dev),
+                  tgt.to(dev), apply_gp=True, label_noise=noise.to(dev),
+                  gp_alpha=alpha.to(dev)).cpu()
+    return losses, grads
+
+
+def faulty_runs(faults, run):
+    """{"fault NAME": run()} with each fault of ``faults`` (``step_faults``)
+    planted in turn."""
+    runs = {}
+    for name, (module, attr, faulty) in faults.items():
+        orig = getattr(module, attr)
+        # the wrappers count on their module's name
+        faulty.launches = faulty.bf16_launches = faulty.flops = 0
+        setattr(module, attr, faulty)
+        try:
+            runs[f"fault {name}"] = run()
+        finally:
+            setattr(module, attr, orig)
+    return runs
+
+
 def phase_step_card_vs_cpu(torch, ka, kb, args, record):
     """One training step on the card and on the CPU from the same weights
     and injected draws: nf=16, 64x64, batch 2, float32 compute, TF32 off,
     learning rate 0. Compares the losses and every gradient before the Adam
     update, beside the float32 floor and the planted faults."""
     from tactile_gan_torch.core.config import TrainConfig
-    from tactile_gan_torch.models.blocks import init_weights
-    from tactile_gan_torch.models.factory import (
-        create_discriminator, create_generator,
-    )
-    from tactile_gan_torch.models.vgg import load_vgg_features
-    from tactile_gan_torch.train.state import TrainState, make_optimizer
-    from tactile_gan_torch.train.step import METRICS, build_train_step
+    from tactile_gan_torch.train.step import METRICS
 
-    nf, size, batch = 16, 64, 2
-    cfg = TrainConfig(nf=nf, batch_size=batch, image_size=size,
-                      compute_dtype="float32")
-    rng = np.random.default_rng(args.seed + 11)
-    src = torch.from_numpy(rng.integers(0, 255, (batch, size, size, 3),
-                                        dtype=np.uint8))
-    tgt = torch.from_numpy(rng.integers(0, 255, (batch, size, size, 3),
-                                        dtype=np.uint8))
-    noise = torch.from_numpy(rng.standard_normal((batch, 9, 9, 1))
-                             .astype(np.float32))
-    alpha = torch.from_numpy(rng.uniform(size=(batch, 1, 1, 1))
-                             .astype(np.float32))
-
-    def one_step(dev, eps=0.0, perturb_seed=0):
-        """(losses, {"G"|"D": {name: grad}}) of one step on dev, every
-        weight scaled by (1 + eps N(0, 1)) when eps is given."""
-        gen = create_generator("UNet++", nf=nf, compute_dtype=torch.float32)
-        disc = create_discriminator("patch", nf=nf)
-        init_weights(gen, torch.Generator().manual_seed(args.seed + 12))
-        init_weights(disc, torch.Generator().manual_seed(args.seed + 13))
-        if eps:
-            g = torch.Generator().manual_seed(args.seed + perturb_seed)
-            with torch.no_grad():
-                for p in list(gen.parameters()) + list(disc.parameters()):
-                    p.mul_(1 + eps * torch.randn(p.shape, generator=g))
-        gen.to(dev)
-        disc.to(dev)
-        opt_g = make_optimizer(gen.parameters(), cfg.lr, cfg.beta1)
-        opt_d = make_optimizer(disc.parameters(), cfg.lr, cfg.beta1)
-        grads = {}
-        for name, opt, model in (("G", opt_g, gen), ("D", opt_d, disc)):
-            names = [n for n, _ in model.named_parameters()]
-
-            def hook(o, _args, _kwargs, name=name, names=names):
-                grads[name] = {n: p.grad.detach().cpu().clone() for n, p in
-                               zip(names, o.param_groups[0]["params"])}
-            opt.register_step_pre_hook(hook)
-        # Learning rate 0: both sides score G against the same D. Adam's
-        # first update is about lr * sign(grad), which would turn rounding
-        # noise in near-zero D gradients into 2 lr weight differences.
-        step = build_train_step(cfg, lambda _step: 0.0,
-                                load_vgg_features(device=dev))
-        losses = step(TrainState(gen, disc, opt_g, opt_d), src.to(dev),
-                      tgt.to(dev), apply_gp=True, label_noise=noise.to(dev),
-                      gp_alpha=alpha.to(dev)).cpu()
-        return losses, grads
-
-    cpu = one_step("cpu")
+    cfg = TrainConfig(nf=STEP_NF, batch_size=STEP_BATCH,
+                      image_size=STEP_SIZE, compute_dtype="float32")
+    cpu = step_grads(torch, args, cfg, "cpu")
 
     def reading(res):
         """The run against the CPU step: loss rel err and the three
@@ -1433,18 +1607,12 @@ def phase_step_card_vs_cpu(torch, ka, kb, args, record):
         return r["loss_rel_err"] <= STEP_LOSS_RTOL and all(
             r[k] <= lim for k, lim in STEP_GRAD_LIMITS.items())
 
-    runs = {"card": reading(one_step("cuda"))}
+    runs = {"card": reading(step_grads(torch, args, cfg, "cuda"))}
     for s in STEP_FLOOR_SEEDS:
-        runs[f"floor seed {s}"] = reading(one_step("cpu", STEP_FLOOR_EPS, s))
-    for name, (module, attr, faulty) in step_faults(ka, kb).items():
-        orig = getattr(module, attr)
-        # the wrappers count on their module's name
-        faulty.launches = faulty.flops = 0
-        setattr(module, attr, faulty)
-        try:
-            runs[f"fault {name}"] = reading(one_step("cuda"))
-        finally:
-            setattr(module, attr, orig)
+        runs[f"floor seed {s}"] = reading(step_grads(
+            torch, args, cfg, "cpu", STEP_FLOOR_EPS, s))
+    runs.update(faulty_runs(step_faults(ka, kb), lambda: reading(
+        step_grads(torch, args, cfg, "cuda"))))
     for name, r in runs.items():
         r["within_limits"] = within(r)
         print(f"training step vs CPU, {name}: loss rel err "
@@ -1642,6 +1810,232 @@ def phase_graph_vs_eager(torch, ka, kb, args, record):
         raise AssertionError(f"graph vs eager: graphed {runs['graphed']}, "
                              f"limits {limits}; planted faults not caught "
                              f"{missed}")
+    return out
+
+
+# The bf16-resident training step (phase resident): train.py's defaults
+# with --bf16_resident --disc_bf16 beside the default (float32-resident)
+# step, in one call. RESIDENT_STEPS graphed steps (the first eager, then
+# the capture and its replays) give the launch counts; the profile runs
+# RESIDENT_REPS more; RESIDENT_BIT_STEPS graphed steps are held to as many
+# eager ones bit for bit (cuDNN deterministic).
+RESIDENT = dict(bf16_resident=True, disc_bf16=True)
+RESIDENT_STEPS = 4
+RESIDENT_REPS = 3
+RESIDENT_BIT_STEPS = 3
+# Card against CPU, resident (nf 16, 64x64, batch 2, bf16 compute, lr 0).
+# Tensor by tensor the resident step's gradients are noise: on the CPU a
+# weight change of 1e-3 moves the median tensor by 0.43 of its largest entry.
+# So the step is read over whole networks, where that noise averages out:
+# the gradient's angle (1 - cos) and scale (|norm ratio - 1|) for G, for D,
+# and the scale for the nine row-0 convs of kernels B and D (their angle
+# reads 0.12-0.13 at the floor: 3x that comes near half of what an
+# unrelated gradient reads), and the losses' largest relative difference.
+# Each limit is RESIDENT_FACTOR times the largest of its floor runs, the
+# CPU step with every weight x (1 + RESIDENT_EPS N(0, 1)) under five seeds
+# (at most loss 0.016, G 0.0095 / 5.5e-4, D 0.0084 / 0.0023, row-0 scale
+# 0.045 on the H100 machine's CPU), and must stay under half of what an
+# unrelated or zero gradient reads (1). RESIDENT_EPS is a quarter of
+# bf16's relative step (2^-8): about a quarter of the weights round to
+# their neighbour, the size of the bf16 roundings in which cuDNN and the
+# CPU library differ.
+RESIDENT_EPS = 1e-3
+RESIDENT_FACTOR = 3.0
+RESIDENT_FLOOR_SEEDS = (14, 15, 16, 17, 18)
+# Never below 1% for an angle or a scale: a norm ratio's distance from 1
+# reads 4e-5 to 6e-4 over the floor's seeds (a signed change near zero by
+# chance), under the card's own 1e-3. The planted faults read 0.10-2.5 in
+# the statistics that catch them.
+RESIDENT_MIN = 0.01
+RESIDENT_STATS = ("loss_rel_err", "G angle", "G scale", "D angle",
+                  "D scale", "row0 scale")
+
+
+def bf16_counts(ka, kb, kd):
+    """The bf16 launches of the five wrappers of the step (by
+    ``launch_counts``'s names)."""
+    return {"instance_norm_act": ka.instance_norm_act.bf16_launches,
+            "instance_norm_act_backward": ka.backward_kernel.bf16_launches,
+            "conv3x3": kb.conv3x3.bf16_launches,
+            "conv3x3_dgrad": kb.dgrad_kernel.bf16_launches,
+            "conv3x3_wgrad": kd.conv3x3_wgrad.bf16_launches}
+
+
+def resident_faults(ka, kb):
+    """The faults planted on the resident step's check: C's dx x 1.1, B-dx
+    x 1.25 and D's dk x 1.25."""
+    c_orig, dx_orig, d_orig = ka.backward_kernel, kb.dgrad_kernel, \
+        kb.conv3x3_wgrad
+
+    def c_dx_scaled(*a):
+        dx, dscale, doffset = c_orig(*a)
+        return dx * 1.1, dscale, doffset
+
+    return {"C dx x 1.1": (ka, "backward_kernel", c_dx_scaled),
+            "B-dx x 1.25": (kb, "dgrad_kernel",
+                            lambda *a: dx_orig(*a) * 1.25),
+            "D dk x 1.25": (kb, "conv3x3_wgrad",
+                            lambda x, g, *, compute_dtype: 1.25 * d_orig(
+                                x, g, compute_dtype=compute_dtype))}
+
+
+def resident_reading(torch, res, cpu):
+    """A resident step (``step_grads``) against the CPU's: the statistics of
+    RESIDENT_STATS."""
+    (la, ga), (lb, gb) = res, cpu
+    out = {"loss_rel_err": ((la - lb).abs() / lb.abs()).max().item()}
+    for label, net, names in (
+            ("G", "G", list(gb["G"])), ("D", "D", list(gb["D"])),
+            ("row0", "G", [n for n in gb["G"] if n.startswith("conv0_")
+                           and n.endswith(("layer.0.weight",
+                                           "layer.3.weight"))
+                           and n != "conv0_0.layer.0.weight"])):
+        a, b = (torch.cat([g[net][n].double().flatten() for n in names])
+                for g in (ga, gb))
+        out[f"{label} angle"] = 1 - float(a @ b) / float(a.norm() * b.norm())
+        out[f"{label} scale"] = abs(float(a.norm() / b.norm()) - 1)
+    return out
+
+
+def resident_card_vs_cpu(torch, ka, kb, args):
+    """One resident step (nf 16, 64x64, batch 2, bf16 compute, lr 0) on the
+    card against the CPU's, beside its floor and three planted faults."""
+    from tactile_gan_torch.core.config import TrainConfig
+
+    cfg = TrainConfig(nf=STEP_NF, batch_size=STEP_BATCH,
+                      image_size=STEP_SIZE, **RESIDENT)
+    cpu = step_grads(torch, args, cfg, "cpu")
+    def reading(dev, *perturb):
+        return resident_reading(torch, step_grads(torch, args, cfg, dev,
+                                                  *perturb), cpu)
+
+    runs = {"card": reading("cuda")}
+    for s in RESIDENT_FLOOR_SEEDS:
+        runs[f"floor seed {s}"] = reading("cpu", RESIDENT_EPS, s)
+    runs.update(faulty_runs(resident_faults(ka, kb), lambda: reading("cuda")))
+    limits = {k: RESIDENT_FACTOR * max(r[k] for n, r in runs.items()
+                                       if n.startswith("floor"))
+              for k in RESIDENT_STATS}
+    for k in RESIDENT_STATS[1:]:
+        limits[k] = max(limits[k], RESIDENT_MIN)
+    for name, r in runs.items():
+        r["within_limits"] = all(r[k] <= limits[k] for k in RESIDENT_STATS)
+        print(f"resident step vs CPU, {name}: "
+              + ", ".join(f"{k} {r[k]:.3e}" for k in r
+                          if k != "within_limits")
+              + f"; within limits {r['within_limits']}", flush=True)
+    print(f"resident step vs CPU: limits {limits} ({RESIDENT_FACTOR} x the "
+          f"floor at eps {RESIDENT_EPS}, at least {RESIDENT_MIN} for an "
+          "angle or a scale)", flush=True)
+    missed = [n for n, r in runs.items() if n.startswith("fault")
+              and r["within_limits"]]
+    vacuous = [k for k in RESIDENT_STATS[1:] if not 0 < limits[k] < 0.5]
+    if not runs["card"]["within_limits"] or missed or vacuous or not (
+            limits["loss_rel_err"] > 0):
+        raise AssertionError(f"resident step vs CPU: card {runs['card']}, "
+                             f"limits {limits} (at or over half the "
+                             f"ceiling: {vacuous}); planted faults not "
+                             f"caught {missed}")
+    return {"runs": runs, "limits": limits, "eps": RESIDENT_EPS,
+            "factor": RESIDENT_FACTOR, "min": RESIDENT_MIN}
+
+
+def resident_bits(torch, kb, args):
+    """RESIDENT_BIT_STEPS graphed resident steps against as many eager ones
+    from one state, batch and generator seed (cuDNN deterministic): every
+    loss and parameter equal bit for bit; the stale relayout planted on the
+    graphed run must break that."""
+    from tactile_gan_torch.core.config import TrainConfig
+    from tactile_gan_torch.utils.profiling import fixed_step
+
+    def run(graphed):
+        fs = fixed_step(TrainConfig(**RESIDENT), args.seed + 50)
+        losses = torch.stack([fs() if graphed else fs.eager()
+                              for _ in range(RESIDENT_BIT_STEPS)])
+        flat = torch.cat([p.detach().flatten() for m in (fs.state.gen,
+                                                         fs.state.disc)
+                          for p in m.parameters()])
+        del fs
+        return losses, flat
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        eager = run(False)
+        graphed = run(True)
+        name, (owner, attr, faulty) = next(iter(graph_faults(torch, kb)
+                                                .items()))
+        orig = getattr(owner, attr)
+        setattr(owner, attr, faulty)
+        try:
+            planted = run(True)
+        finally:
+            setattr(owner, attr, orig)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    equal = {k: all(torch.equal(a, b) for a, b in zip(res, eager))
+             for k, res in (("graphed", graphed), (f"fault {name}", planted))}
+    diff = (graphed[1] - eager[1]).abs()
+    print(f"resident graphed vs eager, {RESIDENT_BIT_STEPS} steps: equal "
+          f"bits {equal} (graphed max |param diff| {diff.max().item():.3e})",
+          flush=True)
+    if not equal["graphed"] or equal[f"fault {name}"]:
+        raise AssertionError(f"resident graphed vs eager: {equal}")
+    return equal
+
+
+def phase_resident(torch, ka, kb, kd, args, record):
+    """train.py's defaults with --bf16_resident --disc_bf16 beside the
+    default step, graphed, in one call: exact launches a step, all of the
+    resident step's on bf16 activations and none of the default's; ms a
+    step, busy time, idle share, peak memory and the device split of each;
+    graphed equal to eager bit for bit; the card against the CPU. A gate.
+    Each kernel's bf16 shapes of the step are held against its plain
+    version in phase kernels_training, and the parallel phase's
+    dryrun_multichip(4) and (1) run the dry run's phase 2 resident."""
+    from tactile_gan_torch.core.config import TrainConfig
+    from tactile_gan_torch.utils.profiling import fixed_step, profile_calls
+
+    out = {"card": card_line()}
+    torch.backends.cudnn.allow_tf32 = True  # as a user runs it
+    try:
+        steps = {}
+        for name, fields in (("default", {}), ("resident", RESIDENT)):
+            torch.cuda.reset_peak_memory_stats()
+            fs = fixed_step(TrainConfig(**fields), args.seed + 50)
+            if (fs.state.gen.bf16_resident, fs.state.disc.resident) != (
+                    bool(fields), bool(fields)):
+                raise AssertionError(f"{name}: the flags did not reach the "
+                                     "models")
+            reset_counts(ka, kb, kd)
+            for _ in range(RESIDENT_STEPS):
+                losses = fs()
+            torch.cuda.synchronize()
+            counts, bf16 = launch_counts(ka, kb, kd), bf16_counts(ka, kb, kd)
+            want = {k: v * RESIDENT_STEPS for k, v in PER_STEP.items()}
+            want_bf16 = {k: want[k] if fields else 0 for k in bf16}
+            if counts != want or bf16 != want_bf16:
+                raise AssertionError(f"{name}: launches {counts}, bf16 "
+                                     f"{bf16}; expected {want}, bf16 "
+                                     f"{want_bf16}")
+            if not torch.isfinite(losses).all():
+                raise AssertionError(f"{name}: losses {losses}")
+            res = profile_calls(fs, RESIDENT_REPS, warmup=1)
+            res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            res["launches"], res["bf16_launches"] = counts, bf16
+            steps[name] = res
+            print(f"resident phase, {name} step (graphed, {out['card']}): "
+                  f"{res['wall_ms']:.3f} ms/step, busy {res['busy_ms']:.3f} "
+                  f"ms, idle {res['idle_share']:.4f}, peak "
+                  f"{res['peak_mem_bytes'] / 2**30:.3f} GiB; device ms "
+                  f"{res['device_ms']}; bf16 launches {bf16}", flush=True)
+            del fs
+        out["steps"] = steps
+        out["bits"] = resident_bits(torch, kb, args)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    out["card_vs_cpu"] = resident_card_vs_cpu(torch, ka, kb, args)
+    record["resident"] = out
     return out
 
 
@@ -3504,9 +3898,9 @@ def main() -> int:
     timed("edges", phase_edges, torch, ka, kb, kd, args.seed, record)
     a_rows, b_rows = timed("kernels_serving", phase_kernels, torch, ka, kb,
                            args.seed, record, parent)
-    c_rows, dx_rows, d_rows = timed("kernels_training", phase_train_kernels,
-                                    torch, ka, kb, kd, args.seed, record,
-                                    parent)
+    train_rows = timed("kernels_training", phase_train_kernels, torch, ka,
+                       kb, kd, args.seed, record, parent)
+    c_rows, dx_rows, d_rows = (train_rows[k] for k in ("c", "dx", "d"))
     train = timed("train", phase_train, torch, ka, kb, kd, args, record)
     quality = timed("quality", phase_quality, torch, ka, kb, kd, record)
     serve = timed("serve", phase_serve, torch, ka, kb, args, record)
@@ -3517,6 +3911,8 @@ def main() -> int:
           record)
     timed("graph_vs_eager", phase_graph_vs_eager, torch, ka, kb, args,
           record)
+    resident = timed("resident", phase_resident, torch, ka, kb, kd, args,
+                     record)
     other = timed("other_generators", phase_other_generators, torch, ka, kb,
                   kd, args, record)
     variants = timed("variants", phase_variants, torch, ka, kb, kd, args,
@@ -3557,6 +3953,10 @@ def main() -> int:
         launches[k] += sum(rank[k] for name, _, _, _, fault in PAR_RUNS
                            if not fault for rank in
                            parallel["gloo"]["runs"][name]["launches"])
+    # The resident phase's runs of the default and the resident step.
+    for k in launches:
+        launches[k] += sum(r["launches"][k]
+                           for r in resident["steps"].values())
     fwd = serving_rows(TRAIN_BATCH)
     a_step = [r for r in a_rows if fwd(r)]
     b_step = [r for r in b_rows if fwd(r)]
@@ -3608,14 +4008,28 @@ def main() -> int:
             ("kernel_d_step", "D a training step", d_rows,
              lambda r: r["per_step"]),
             ("kernel_e_pass", "E a probe pass (conv3x3_p1)",
-             probe["rows"]["conv3x3_p1"], lambda r: 1)):
+             probe["rows"]["conv3x3_p1"], lambda r: 1),
+            # The resident step's (--bf16_resident): bf16 activations.
+            ("kernel_a_step_bf16", "A a resident training step",
+             train_rows["a_bf16"], lambda r: r["per_step"]),
+            ("kernel_c_step_bf16", "C a resident training step",
+             train_rows["c_bf16"], lambda r: r["per_step"]),
+            ("kernel_b_step_bf16", "B forward a resident training step",
+             [r for r in b_rows if r["shape"][0] == TRAIN_BATCH
+              and r["dtype"] == r["compute"] == "bfloat16"],
+             lambda r: r["per_forward"]),
+            ("kernel_b_dx_step_bf16", "B-dx a resident training step",
+             train_rows["dx_bf16"], lambda r: r["per_step"]),
+            ("kernel_d_step_bf16", "D a resident training step",
+             train_rows["d_bf16"], lambda r: r["per_step"])):
         total = {k: sum(r[k] * weight(r) for r in rows)
-                 for k in ("ms", "library_ms", "bound_ms")}
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
         if all(r.get("parent_ms") is not None for r in rows):
             total["parent_ms"] = sum(r["parent_ms"] * weight(r) for r in rows)
         record[key] = total
         print(f"{label}: {total['ms']:.4f} ms (parent "
-              f"{fmt(total.get('parent_ms'))}, library "
+              f"{fmt(total.get('parent_ms'))}, plain "
+              f"{total['plain_ms']:.4f}, library "
               f"{total['library_ms']:.4f}, bound {total['bound_ms']:.4f})",
               flush=True)
     record["main_path_launches"] = launches

@@ -11,14 +11,21 @@ through ``cli.test`` at its defaults, prints ``eval.txt`` as the script's
 accuracy and Jaccard, the L1 curve (``l1loss.npy``), the training seconds
 (epoch 1, which holds the CUDA graph captures, apart), the serving seconds,
 the kernel launches a training step (by wrapper, as ``train/graph.py``'s
-``LAUNCH_COUNTERS`` names them) and the device. Each flag maps one of
+``LAUNCH_COUNTERS`` names them; all, and those on bfloat16 activations)
+and the device. Each flag maps one of
 the script's environment knobs, with its default (``--work`` under the
-temporary directory, ``$TMPDIR`` or ``/tmp``); ``--seed`` and
-``--device`` are the port's. The script's three record configs:
+temporary directory, ``$TMPDIR`` or ``/tmp``); ``--seed``,
+``--device``, ``--bf16_resident`` and ``--disc_bf16`` are the port's. The
+last two pass on to ``cli.train``: on a TPU the script's run takes both
+modes from the JAX package's auto gate, which the port never engages, so
+they run the configuration of the JAX record. The script's three record
+configs:
 
     python -m tactile_gan_torch.cli.quality --batch 4 --version 2
     python -m tactile_gan_torch.cli.quality --batch 16 --version 2
     python -m tactile_gan_torch.cli.quality --batch 4 --version 1 --lambda_per 1
+
+each with ``--bf16_resident --disc_bf16`` for the JAX record's dtypes.
 """
 
 from __future__ import annotations
@@ -49,24 +56,30 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "unset = cli.train's default)")
     p.add_argument("--tag", default=None,
                    help="model folder (the script's TAG; default "
-                        "quality_b{batch}_v{version})")
+                        "quality_b{batch}_v{version}, with _resident "
+                        "after it under either residency flag)")
     p.add_argument("--work",
                    default=os.path.join(tempfile.gettempdir(), "quality_run"),
                    help="work root holding data/, models/ and Outputs/ "
                         "(the script's WORK)")
     p.add_argument("--seed", type=int, default=21, help="training seed")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--bf16_resident", default=False, action="store_true",
+                   help="train with cli.train's --bf16_resident")
+    p.add_argument("--disc_bf16", default=False, action="store_true",
+                   help="train with cli.train's --disc_bf16")
     args = p.parse_args(argv)
     if args.tag is None:
-        args.tag = f"quality_b{args.batch}_v{args.version}"
+        args.tag = f"quality_b{args.batch}_v{args.version}" + (
+            "_resident" if args.bf16_resident or args.disc_bf16 else "")
     return args
 
 
 def train_argv(args: argparse.Namespace, *, nf: int = 64,
                size: int = SIZE) -> list:
     """``cli.train``'s argv: the script's ``python train.py`` flags in its
-    order, then ``--image_size`` where ``size`` is not the script's, then
-    the seed and the device."""
+    order, then ``--image_size`` where ``size`` is not the script's, the
+    residency flags given, then the seed and the device."""
     argv = ["--data", os.path.join(args.work, "data"), "--gen", "UNet++",
             "--nf", str(nf), "--batch_size", str(args.batch),
             "--total_epochs", str(args.epochs), "--epoch_constant", "10",
@@ -76,6 +89,8 @@ def train_argv(args: argparse.Namespace, *, nf: int = 64,
         argv += ["--lambda_per", f"{args.lambda_per:g}"]
     if size != SIZE:
         argv += ["--image_size", str(size)]
+    argv += [f"--{flag}" for flag in ("bf16_resident", "disc_bf16")
+             if getattr(args, flag)]
     return argv + ["--seed", str(args.seed), "--device", args.device]
 
 
@@ -131,11 +146,13 @@ def main(argv=None, *, nf: int = 64, size: int = SIZE, n_train: int = N_TRAIN,
     device = resolve_device(args.device)  # no card: raises before any work
     chart_set(os.path.join(args.work, "data"), n_train, n_test, size)
 
-    before = read_launches()
+    counts = ("launches", "bf16_launches")
+    before = [read_launches(c) for c in counts]
     trainer = train_cli.main(train_argv(args, nf=nf, size=size))
     steps = trainer.state.step
-    launches = {name: (after - b) / steps for (_, name), after, b in
-                zip(LAUNCH_COUNTERS, read_launches(), before)}
+    launches, bf16 = ({name: (after - b) / steps for (_, name), after, b in
+                       zip(LAUNCH_COUNTERS, read_launches(c), bc)}
+                      for c, bc in zip(counts, before))
     t0 = time.perf_counter()
     metrics = test_cli.main(serve_argv(args))
     eval_s = time.perf_counter() - t0
@@ -151,6 +168,8 @@ def main(argv=None, *, nf: int = 64, size: int = SIZE, n_train: int = N_TRAIN,
                    "tag": args.tag, "nf": nf, "size": size,
                    "n_train": n_train, "n_test": n_test},
         "seed": args.seed,
+        "bf16_resident": trainer.cfg.effective_bf16_resident(),
+        "disc_bf16": trainer.cfg.effective_disc_bf16(),
         **metrics,
         "l1_first": float(l1[0]), "l1_last": float(l1[-1]),
         "l1_curve": [float(v) for v in l1],
@@ -161,6 +180,7 @@ def main(argv=None, *, nf: int = 64, size: int = SIZE, n_train: int = N_TRAIN,
         "steps": steps,
         "eval_s": eval_s,
         "launches_per_step": launches,
+        "bf16_launches_per_step": bf16,
         "device": device_name(device),
     }
     print(json.dumps(result), flush=True)

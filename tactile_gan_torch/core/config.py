@@ -12,8 +12,13 @@ The port adds ``device`` (cuda unless the caller asks for cpu).
 of a parallel run and ``--ckpt_backend orbax`` writes its periodic
 checkpoints with ``torch.distributed.checkpoint`` (``train/loop.py``).
 Flags that only choose a TPU layout or kernel of the same function
-(``--use_pallas``, ``--lane_pack``, ...) are accepted and ignored with a
-one-line note.
+(``--use_pallas``, ``--lane_pack``, ``--gp_fused``, ...) are accepted and
+ignored with a one-line note. ``--bf16_resident`` and ``--disc_bf16``
+change the rounding of every activation, so the port computes them: under
+a bf16 compute dtype UNet++'s rows (row 0 included) and the
+discriminator keep bf16 activations between ops. Their auto value (no
+flag) is off on every device: the JAX package's auto gate engages on a
+TPU backend only, which the port never has.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # Flags of the JAX package that only pick a TPU layout or kernel of the
 # same function: accepted, ignored by the port.
 TPU_ONLY_FLAGS = ("use_pallas", "force_pallas", "split_concat", "lane_pack",
-                  "bf16_resident", "packed_row0", "gp_fused", "disc_bf16")
+                  "packed_row0", "gp_fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +119,18 @@ class TrainConfig:
         """The directory holding models/ and checkpoints/: the reference
         derives it as ``data.rsplit('/', 1)[0]``."""
         return self.data.rsplit("/", 1)[0] if "/" in self.data else "."
+
+    def effective_bf16_resident(self) -> bool:
+        """Whether UNet++ keeps bf16 activations between ops in every row:
+        the explicit flag, else off (the JAX package's auto value off a
+        TPU); off under float32 compute, where no activation is bf16."""
+        return bool(self.bf16_resident) and self.compute_dtype == "bfloat16"
+
+    def effective_disc_bf16(self) -> bool:
+        """Whether the discriminator keeps bf16 activations between ops:
+        the explicit flag, else off (the JAX package's auto value off a
+        TPU); off under float32 compute, where no activation is bf16."""
+        return bool(self.disc_bf16) and self.compute_dtype == "bfloat16"
 
     def models_dir(self) -> str:
         return os.path.join(self.work_root, "models", self.folder_save)
@@ -229,11 +246,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
                        help="TPU-only; ignored by the port")
     p.add_argument("--force_pallas", default=False, action="store_true",
                    help="TPU-only; ignored by the port")
-    for flag in ("lane_pack", "bf16_resident", "packed_row0", "gp_fused",
-                 "disc_bf16"):
+    for flag in ("lane_pack", "packed_row0", "gp_fused"):
         p.add_argument(f"--{flag}", default=None,
                        action=argparse.BooleanOptionalAction,
                        help="TPU-only; ignored by the port")
+    p.add_argument("--bf16_resident", default=None,
+                   action=argparse.BooleanOptionalAction,
+                   help="UNet++ keeps the bf16 compute dtype between ops in "
+                        "every row (conv outputs, norms, ReLUs; the head "
+                        "emits float32); no flag: off. A no-op under "
+                        "float32 compute")
+    p.add_argument("--disc_bf16", default=None,
+                   action=argparse.BooleanOptionalAction,
+                   help="the discriminator keeps the bf16 compute dtype "
+                        "between ops (its logits stay float32); no flag: "
+                        "off. A no-op under float32 compute")
     p.add_argument("--mesh_data", type=int, default=0,
                    help="data-parallel ranks (0: world size / mesh_model)")
     p.add_argument("--mesh_model", type=int, default=1,

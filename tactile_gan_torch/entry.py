@@ -10,7 +10,10 @@ counterparts of ``__graft_entry__.py``).
   x model mesh (n/2 x 2 for even n >= 4, else n x 1) at nf 16, where the
   widest UNet++ convs (16 nf = 256 channels) are split over the model axis,
   with the ``--version 2`` losses; phase 2: pure data parallelism (n x 1),
-  version 1 without the perceptual term, bf16 compute. The ranks meet
+  version 1 without the perceptual term, bf16 compute with bf16-resident
+  UNet++ rows and discriminator (``--bf16_resident --disc_bf16``, the JAX
+  dry run's production dtype story), which each rank checks reached both
+  models. The ranks meet
   over a file store and run eager steps. Their transport is NCCL, one card
   a rank, when the host has a card for each; with fewer cards they share
   ``cuda:0`` over gloo, and on ``device="cpu"`` they run gloo on the CPU.
@@ -82,7 +85,8 @@ def _phases(n: int, root: str, device: str):
     cfg2 = dataclasses.replace(
         cfg, mesh_data=n, mesh_model=1, batch_size=max(n, 2),
         folder_save="dryrun_kernels", lambda_per=0.0, version=1,
-        compute_dtype="bfloat16", host_aug=True)
+        compute_dtype="bfloat16", host_aug=True, bf16_resident=True,
+        disc_bf16=True)
     return [(f"ok — mesh {n_data}x{n_model} (data x model)", cfg),
             (f"kernels-under-mesh ok — mesh {n}x1", cfg2)]
 
@@ -124,6 +128,12 @@ def _rank(rank: int, n: int, root: str, backend: str, device: str) -> None:
             want = {"data": cfg.mesh_data, "model": cfg.mesh_model}
             if trainer.mesh is None or trainer.mesh.shape != want:
                 raise AssertionError(f"mesh {trainer.mesh}, expected {want}")
+            if cfg.bf16_resident and not trainer.gen.bf16_resident:
+                raise AssertionError("bf16_resident did not reach the "
+                                     "generator")
+            if cfg.disc_bf16 and not trainer.disc.resident:
+                raise AssertionError("disc_bf16 did not reach the "
+                                     "discriminator")
             trainer.run_and_save(progress=False)
             losses = dict(G=trainer.gen_loss[-1], D=trainer.disc_loss[-1],
                           gp=trainer.gp_loss[-1])

@@ -28,13 +28,17 @@ from tactile_gan_torch.ops.kernels.instance_norm import instance_norm_act
 
 
 def conv_norm_relu(x: torch.Tensor, conv: nn.Conv2d, norm: nn.InstanceNorm2d,
-                   *, compute_dtype: torch.dtype,
-                   kernel_conv: bool) -> torch.Tensor:
+                   *, compute_dtype: torch.dtype, kernel_conv: bool,
+                   resident: bool = False) -> torch.Tensor:
     """conv -> instance norm -> ReLU, the unit every generator block repeats.
 
     ``kernel_conv`` runs the (3x3/s1/p1, bias-free) conv through kernel B.
+    ``resident`` keeps a low-precision ``compute_dtype`` from the conv's
+    output on (``ops/conv.py``): kernel A then reads and writes that dtype,
+    with float32 statistics, and kernel C returns dx in it.
     """
-    y = conv_layer(x, conv, compute_dtype=compute_dtype, kernel=kernel_conv)
+    y = conv_layer(x, conv, compute_dtype=compute_dtype, kernel=kernel_conv,
+                   resident=resident)
     return instance_norm_act(y, norm.weight, norm.bias, act="relu")
 
 
@@ -54,13 +58,13 @@ def double_conv_layers(in_channels: int, features: int, *,
 
 def double_conv(x: torch.Tensor, layers: nn.Sequential, *,
                 compute_dtype: torch.dtype,
-                kernel_convs: Tuple[bool, bool] = (False, False)
-                ) -> torch.Tensor:
+                kernel_convs: Tuple[bool, bool] = (False, False),
+                resident: bool = False) -> torch.Tensor:
     """The two units of ``double_conv_layers`` on NHWC ``x``."""
     for (conv, norm), kernel_conv in zip(
             ((layers[0], layers[1]), (layers[3], layers[4])), kernel_convs):
         x = conv_norm_relu(x, conv, norm, compute_dtype=compute_dtype,
-                           kernel_conv=kernel_conv)
+                           kernel_conv=kernel_conv, resident=resident)
     return x
 
 
@@ -71,20 +75,25 @@ class DoubleConvBlock(nn.Module):
     ``full_res`` marks a block of the full-resolution row, whose convs run
     kernel B where ``features`` <= 64; the ``stem`` block's first conv (3
     input channels) stays on the library conv, as in the JAX package.
+    ``resident`` (``--bf16_resident``) keeps both units' activations in a
+    low-precision ``compute_dtype``.
     """
 
     def __init__(self, in_channels: int, features: int, *,
                  compute_dtype: torch.dtype = torch.float32,
-                 full_res: bool = False, stem: bool = False):
+                 full_res: bool = False, stem: bool = False,
+                 resident: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.resident = resident
         b = full_res and kb.supported(features)
         self.kernel_convs = (b and not stem, b)
         self.layer = nn.Sequential(*double_conv_layers(in_channels, features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return double_conv(x, self.layer, compute_dtype=self.compute_dtype,
-                           kernel_convs=self.kernel_convs)
+                           kernel_convs=self.kernel_convs,
+                           resident=self.resident)
 
 
 class DownBlock(nn.Module):
@@ -139,7 +148,7 @@ class UpBlock(nn.Module):
 
 class Head(nn.Module):
     """1x1 projection with optional Tanh (the reference's FeatureMapBlock);
-    the output is always float32."""
+    never resident: the output is always float32."""
 
     def __init__(self, in_channels: int, features: int, *,
                  activation: bool = True,

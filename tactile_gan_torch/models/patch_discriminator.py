@@ -16,6 +16,12 @@ PyTorch reference's (``model.0``, ``model.2``, ``model.3``, ...,
 ``model.11``), so ``tactile_gan_tpu/utils/torch_migrate.py`` reads this
 model's ``state_dict``. Activations are NHWC float32; the forward returns
 (logits (N, H', W', 1) float32, the four post-LeakyReLU features).
+
+``resident`` (``--disc_bf16``) keeps a bf16 compute dtype between ops:
+the four convs' outputs, the instance norms (float32 statistics) and the
+LeakyReLUs, so the features are bf16; the logits head still emits float32.
+The gradient penalty differentiates this forward twice as it does the
+float32 one.
 """
 
 from __future__ import annotations
@@ -41,10 +47,11 @@ class PatchDiscriminator(nn.Module):
     def __init__(self, input_dim: int = 3, output_dim: int = 3, nf: int = 64,
                  activation: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
-                 same_pad: bool = False):
+                 same_pad: bool = False, resident: bool = False):
         super().__init__()
         self.activation = activation
         self.compute_dtype = compute_dtype
+        self.resident = resident
         cin = input_dim + output_dim
         p = 1 if same_pad else 0
         self.model = nn.Sequential(
@@ -62,21 +69,22 @@ class PatchDiscriminator(nn.Module):
             nn.Conv2d(8 * nf, 1, 3, 1, p, bias=True),             # 11
         )
 
-    def _conv(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        return conv_layer(x, self.model[i], compute_dtype=self.compute_dtype)
+    def _conv(self, x: torch.Tensor, i: int, resident: bool) -> torch.Tensor:
+        return conv_layer(x, self.model[i], compute_dtype=self.compute_dtype,
+                          resident=resident)
 
     def forward(self, img_a: torch.Tensor, img_b: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         x = torch.cat([img_a, img_b], dim=-1)
         features = []
-        x = leaky_relu(self._conv(x, 0))
+        x = leaky_relu(self._conv(x, 0, self.resident))
         features.append(x)
         for conv_i in (2, 5, 8):
             norm = self.model[conv_i + 1]
-            x = leaky_relu(instance_norm(self._conv(x, conv_i), norm.weight,
-                                         norm.bias))
+            x = leaky_relu(instance_norm(self._conv(x, conv_i, self.resident),
+                                         norm.weight, norm.bias))
             features.append(x)
-        logits = self._conv(x, 11).float()
+        logits = self._conv(x, 11, False)
         if self.activation:
             logits = torch.sigmoid(logits)
         return logits, tuple(features)

@@ -16,6 +16,12 @@ upsampling (it is already aligned with the folded row); and the last
 row-0 node unfolds to H x W x nf/2 before the head. Row 0's convs run
 kernel B where their width 2nf is <= 64.
 
+``bf16_resident=True`` is the JAX package's ``--bf16_resident``: under a
+bf16 compute dtype every row, row 0 and the stem included, keeps bf16
+activations between ops (conv outputs, norms, ReLUs, pooling, upsampling,
+the concatenations and the s2d fold); only the head emits float32. Under
+float32 compute it changes nothing.
+
 Input and output are NHWC float32, like the JAX module. Module names are the
 PyTorch reference's (``conv{r}_{c}.layer.{0,1,3,4}``, ``downfeature.conv``),
 so ``tactile_gan_tpu/utils/torch_migrate.py`` reads this model's
@@ -41,12 +47,13 @@ class UNetPlusPlus(nn.Module):
     def __init__(self, input_dim: int = 3, output_dim: int = 3, nf: int = 64,
                  activation: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
-                 space_to_depth: bool = False):
+                 space_to_depth: bool = False, bf16_resident: bool = False):
         super().__init__()
         if space_to_depth and nf % 2:
             raise ValueError("space_to_depth needs an even nf (the row-0 "
                              "width 2*nf must unfold by 4 at the head)")
         self.space_to_depth = space_to_depth
+        self.bf16_resident = bf16_resident
         widths = [nf * 2 ** r for r in range(ROWS)]
         if space_to_depth:
             widths[0] = 2 * nf
@@ -62,7 +69,8 @@ class UNetPlusPlus(nn.Module):
                     cin = widths[row] * col + widths[row + 1]
                 self.add_module(f"conv{row}_{col}", DoubleConvBlock(
                     cin, widths[row], compute_dtype=compute_dtype,
-                    full_res=row == 0, stem=(row, col) == (0, 0)))
+                    full_res=row == 0, stem=(row, col) == (0, 0),
+                    resident=bf16_resident))
         self.downfeature = Head(widths[0] // 4 if space_to_depth else nf,
                                 output_dim, activation=activation,
                                 compute_dtype=compute_dtype)

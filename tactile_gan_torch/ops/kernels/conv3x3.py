@@ -358,6 +358,7 @@ def forward_kernel(x: torch.Tensor, weight: torch.Tensor,
             _DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream), lib, "conv3x3")
     conv3x3.launches += 1
+    conv3x3.bf16_launches += x.dtype == torch.bfloat16
     conv3x3.flops += conv3x3_flops(n, h, w, cin, co)
     return y
 
@@ -397,11 +398,13 @@ def dgrad_kernel(g: torch.Tensor, weight: torch.Tensor,
                 torch.cuda.current_stream(g.device).cuda_stream), lib,
                 "conv3x3 dgrad")
     dgrad_kernel.launches += 1
+    dgrad_kernel.bf16_launches += g.dtype == torch.bfloat16
     dgrad_kernel.flops += conv3x3_flops(n, h, w, cin, co)
     return dx
 
 
 dgrad_kernel.launches = 0  # kernel B launches for dx
+dgrad_kernel.bf16_launches = 0  # of those, on a bfloat16 gradient
 dgrad_kernel.flops = 0  # of those launches (conv3x3_wgrad.py's docstring)
 
 
@@ -454,6 +457,7 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, *,
 
 
 conv3x3.launches = 0  # kernel B launches for the forward
+conv3x3.bf16_launches = 0  # of those, on a bfloat16 input
 conv3x3.flops = 0  # of those launches (conv3x3_wgrad.py's docstring)
 
 

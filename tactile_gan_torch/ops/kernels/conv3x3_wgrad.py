@@ -20,7 +20,8 @@ which adds zero rows to dk that it drops. On a CPU tensor the wrapper runs
 the plain version; on a CUDA tensor it launches the kernel or raises.
 
 Each of the conv wrappers (B, B-dx and D) counts its launches in
-``.launches`` and the flops they did in ``.flops``: ``conv3x3_flops`` of
+``.launches`` (those on bfloat16 activations in ``.bf16_launches`` too,
+as kernels A and C do) and the flops they did in ``.flops``: ``conv3x3_flops`` of
 the call's unpadded shapes, what ``torch.utils.flop_counter`` counts for
 the plain version (a conv, or D's nine matmuls), which it cannot see in a
 kernel launched through ctypes. Read ``.flops`` around eager calls: a CUDA
@@ -148,6 +149,7 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, *,
     else:
         dk = _wgrad_kernel(x, g, compute_dtype)
     conv3x3_wgrad.launches += 1
+    conv3x3_wgrad.bf16_launches += x.dtype == torch.bfloat16
     conv3x3_wgrad.flops += conv3x3_flops(n, h, w, cin, co)
     return dk
 
@@ -184,4 +186,5 @@ def _wgrad_kernel(x: torch.Tensor, g: torch.Tensor,
 
 
 conv3x3_wgrad.launches = 0
+conv3x3_wgrad.bf16_launches = 0  # of those, on bfloat16 x and g
 conv3x3_wgrad.flops = 0  # of those launches, by conv3x3_flops

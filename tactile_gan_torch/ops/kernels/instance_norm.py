@@ -260,6 +260,7 @@ def forward_kernel(x: torch.Tensor, weight: Optional[torch.Tensor],
         negative_slope, EPS, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(lib, err, "instance_norm_act")
     instance_norm_act.launches += 1
+    instance_norm_act.bf16_launches += x.dtype == torch.bfloat16
     return y, stats
 
 
@@ -308,6 +309,7 @@ def backward_kernel(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on_error(lib, err, "instance_norm_act backward")
     backward_kernel.launches += 1  # kernel C launches
+    backward_kernel.bf16_launches += x.dtype == torch.bfloat16
     # Per-(n, c) partials summed over the batch, as the JAX package sums its
     # per-lane partials outside the kernel.
     dscale, doffset = dso.sum(dim=1)
@@ -315,6 +317,7 @@ def backward_kernel(x: torch.Tensor, g: torch.Tensor, stats: torch.Tensor,
 
 
 backward_kernel.launches = 0
+backward_kernel.bf16_launches = 0  # of those, on bfloat16 x and g
 
 
 class InstanceNormAct(torch.autograd.Function):
@@ -370,3 +373,4 @@ def instance_norm_act(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
 
 
 instance_norm_act.launches = 0  # kernel A launches
+instance_norm_act.bf16_launches = 0  # of those, on a bfloat16 x

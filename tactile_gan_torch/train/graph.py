@@ -17,8 +17,9 @@ replay cannot:
   step would (torch refuses to capture a draw from a generator that is not
   registered);
 - launch counters: the kernel wrappers count Python calls, and a capture
-  makes the calls but launches nothing, so each variant's counts are taken
-  out of the counters at capture and added back on every replay;
+  makes the calls but launches nothing, so each variant's counts (all
+  launches, and those on bfloat16 activations) are taken out of the
+  counters at capture and added back on every replay;
 - weight relayouts: kernel B's cache is keyed by the weight's version
   counter, which a replay does not move, so it is cleared after every
   replay (under capture it is neither read nor written).
@@ -51,35 +52,44 @@ LAUNCH_COUNTERS = ((_norm, "instance_norm_act"), (_norm, "backward_kernel"),
                    (_conv, "conv3x3_p1_h"))
 
 
-def read_launches() -> Tuple[int, ...]:
-    return tuple(getattr(m, name).launches for m, name in LAUNCH_COUNTERS)
+def read_launches(count: str = "launches") -> Tuple[int, ...]:
+    """Each wrapper's ``count``: "launches", or "bf16_launches" (those on
+    bfloat16 activations; 0 for a wrapper that keeps none)."""
+    return tuple(getattr(getattr(m, name), count, 0)
+                 for m, name in LAUNCH_COUNTERS)
 
 
-def add_launches(counts: Sequence[int], sign: int = 1) -> None:
+def add_launches(counts: Sequence[int], sign: int = 1,
+                 count: str = "launches") -> None:
     for (m, name), n in zip(LAUNCH_COUNTERS, counts):
-        getattr(m, name).launches += sign * n
+        fn = getattr(m, name)
+        setattr(fn, count, getattr(fn, count, 0) + sign * n)
 
 
 class LaunchCarry:
     """Moves the counts a capture made into its replays: ``with carry:``
-    around the capture takes them out of the counters into ``counts``;
-    ``replayed()`` adds them once."""
+    around the capture takes them out of the counters into ``counts``
+    (and ``bf16_counts``); ``replayed()`` adds them once."""
 
     def __init__(self):
         self.counts: Tuple[int, ...] = tuple(0 for _ in LAUNCH_COUNTERS)
-        self._before: Tuple[int, ...] = self.counts
+        self.bf16_counts: Tuple[int, ...] = self.counts
+        self._before = (self.counts, self.counts)
 
     def __enter__(self) -> "LaunchCarry":
-        self._before = read_launches()
+        self._before = (read_launches(), read_launches("bf16_launches"))
         return self
 
     def __exit__(self, *exc) -> None:
-        self.counts = tuple(a - b for a, b in
-                            zip(read_launches(), self._before))
-        add_launches(self.counts, -1)
+        self.counts, self.bf16_counts = (
+            tuple(a - b for a, b in zip(read_launches(count), before))
+            for count, before in zip(("launches", "bf16_launches"),
+                                     self._before))
+        self.replayed(-1)
 
-    def replayed(self) -> None:
-        add_launches(self.counts)
+    def replayed(self, sign: int = 1) -> None:
+        add_launches(self.counts, sign)
+        add_launches(self.bf16_counts, sign, "bf16_launches")
 
 
 @dataclasses.dataclass

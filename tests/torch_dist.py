@@ -63,13 +63,19 @@ def schedule():
     return multistep_lr(LR, 25, 135, 100)
 
 
-def jax_step_reference(path: str) -> None:
+def jax_step_reference(path: str, resident: bool = False) -> None:
     """One jitted JAX single-device step (UNet++ nf 8, 32x32, batch 4,
     float32, GP, the v1 perceptual loss on the JAX fallback tower, label
     smoothing), written to ``path`` (npz) in the port's layout: the states
     before (``gen/*``, ``disc/*``) and after (``after_gen/*``,
     ``after_disc/*``), the losses, the batch, the step's own label noise
-    and GP alpha (global draws) and the VGG tower (``vgg/*``)."""
+    and GP alpha (global draws) and the VGG tower (``vgg/*``).
+
+    ``resident``: the ``RESIDENT`` step instead (``--bf16_resident
+    --disc_bf16``, nf 16, batch 2, bf16 compute, the version-2 pan term),
+    and its floor: for each seed s of ``FLOOR_SEEDS`` the same step from
+    every weight scaled by (1 + PERTURB N(0, 1)), its states and losses
+    under ``floor{s}/``."""
     import jax
     import jax.numpy as jnp
 
@@ -85,15 +91,21 @@ def jax_step_reference(path: str) -> None:
         patchdisc_state_dict_from_jax, unetpp_state_dict_from_jax,
     )
 
-    cfg = JaxTrainConfig(gen="UNet++", nf=NF, batch_size=BATCH,
-                         image_size=SIZE, compute_dtype="float32", lr=LR,
-                         beta1=BETA1)
-    gen = create_generator("UNet++", 3, NF, activation=True)
-    disc = create_discriminator("patch", NF, activation=True)
+    fields = RESIDENT if resident else dict(
+        nf=NF, batch_size=BATCH, image_size=SIZE, compute_dtype="float32")
+    nf, batch, size = (fields[k] for k in ("nf", "batch_size", "image_size"))
+    cfg = JaxTrainConfig(gen="UNet++", lr=LR, beta1=BETA1, **fields)
+    dtype = jnp.dtype(fields["compute_dtype"])
+    gen = create_generator("UNet++", 3, nf, activation=True,
+                           compute_dtype=dtype,
+                           bf16_resident=bool(cfg.bf16_resident))
+    disc = create_discriminator("patch", nf, activation=True,
+                                compute_dtype=dtype,
+                                resident=bool(cfg.disc_bf16))
     sched = multistep_lr(LR, cfg.epoch_constant, cfg.total_epochs, 100)
     g_tx, d_tx = make_optimizer(sched, BETA1), make_optimizer(sched, BETA1)
     tower = jax_vgg.load_vgg_features("")
-    ex = jnp.zeros((BATCH, SIZE, SIZE, 3))
+    ex = jnp.zeros((batch, size, size, 3))
     # Weights from numpy into the state's shapes (the modules' own inits
     # take 40 s op by op on this CPU, 11 s jitted): kernels and biases
     # N(0, 0.05), norm scales 1 + N(0, 0.05).
@@ -107,37 +119,54 @@ def jax_step_reference(path: str) -> None:
 
     g_params = jax.tree_util.tree_map_with_path(draw, shapes.g_params)
     d_params = jax.tree_util.tree_map_with_path(draw, shapes.d_params)
-    state = shapes.replace(g_params=g_params, d_params=d_params,
-                           g_opt_state=g_tx.init(g_params),
-                           d_opt_state=d_tx.init(d_params),
-                           step=jnp.zeros((), jnp.int32))
     step = build_train_step(cfg, gen, disc, g_tx, d_tx,
                             vgg_apply=jax_vgg.vgg_features_apply,
                             vgg_params=tower)
     rng = np.random.default_rng(41)
-    src = rng.integers(0, 255, (BATCH, SIZE, SIZE, 3), np.uint8)
-    tgt = rng.integers(0, 255, (BATCH, SIZE, SIZE, 3), np.uint8)
+    src = rng.integers(0, 255, (batch, size, size, 3), np.uint8)
+    tgt = rng.integers(0, 255, (batch, size, size, 3), np.uint8)
     key = jax.random.key(5)
-    before = jax.tree.map(np.array, jax.device_get(state))  # step donates it
-    after, m = step(state, jnp.asarray(src), jnp.asarray(tgt), key,
-                    apply_gp=True)
     k_step = jax.random.fold_in(key, 0)
-    pred_shape = (BATCH, 1, 1, 1)  # D's patch map at 32x32
+    pred_shape = jax.eval_shape(disc.apply, d_params, ex, ex)[0].shape
     noise = jax.random.normal(jax.random.fold_in(k_step, 3), pred_shape,
                               jnp.float32)
     alpha = jax.random.uniform(jax.random.fold_in(k_step, 4),
-                               (BATCH, 1, 1, 1), jnp.float32)
-    out = {"losses": np.asarray([float(v) for v in (
-        m.loss_d, m.loss_g, m.loss_l1, m.loss_gp, m.loss_per)], np.float32),
-        "src": src, "tgt": tgt, "noise": np.asarray(noise),
-        "alpha": np.asarray(alpha)}
-    for prefix, host in (("", before), ("after_", jax.tree.map(
-            np.array, jax.device_get(after)))):
-        for key_, params, conv in (
-                ("gen", host.g_params, unetpp_state_dict_from_jax),
-                ("disc", host.d_params, patchdisc_state_dict_from_jax)):
-            for k, v in conv(params).items():
-                out[f"{prefix}{key_}/{k}"] = np.asarray(v)
+                               (batch, 1, 1, 1), jnp.float32)
+    out = {"src": src, "tgt": tgt, "noise": np.asarray(noise),
+           "alpha": np.asarray(alpha)}
+
+    def run(g_params, d_params, label):
+        state = shapes.replace(g_params=g_params, d_params=d_params,
+                               g_opt_state=g_tx.init(g_params),
+                               d_opt_state=d_tx.init(d_params),
+                               step=jnp.zeros((), jnp.int32))
+        before = jax.tree.map(np.array, jax.device_get(state))
+        after, m = step(state, jnp.asarray(src), jnp.asarray(tgt), key,
+                        apply_gp=True)
+        out[f"{label}losses"] = np.asarray([float(v) for v in (
+            m.loss_d, m.loss_g, m.loss_l1, m.loss_gp, m.loss_per)],
+            np.float32)
+        after = jax.tree.map(np.array, jax.device_get(after))
+        for prefix, host in (("", before), ("after_", after)):
+            for key_, params, conv in (
+                    ("gen", host.g_params, unetpp_state_dict_from_jax),
+                    ("disc", host.d_params, patchdisc_state_dict_from_jax)):
+                for k, v in conv(params).items():
+                    out[f"{label}{prefix}{key_}/{k}"] = np.asarray(v)
+        # Adam's first moment after the first step: (1 - beta1) x gradient
+        for key_, opt_state, conv in (
+                ("gen", after.g_opt_state, unetpp_state_dict_from_jax),
+                ("disc", after.d_opt_state, patchdisc_state_dict_from_jax)):
+            for k, v in conv(opt_state[0].mu).items():
+                out[f"{label}mu_{key_}/{k}"] = np.asarray(v)
+
+    host = jax.tree.map(np.array, (g_params, d_params))  # the step donates
+    run(g_params, d_params, "")
+    for seed in FLOOR_SEEDS if resident else ():
+        r = np.random.default_rng(seed)
+        run(*jax.tree.map(lambda v: jnp.asarray(v * (
+            1 + PERTURB * r.standard_normal(v.shape)), jnp.float32), host),
+            f"floor{seed}/")
     for k, v in tower.items():
         v = np.asarray(v)
         if k.endswith(".kernel"):
@@ -153,29 +182,35 @@ def _group(ref, prefix):
             if k.startswith(prefix)}
 
 
-def reference_state(ref):
-    """The port's TrainState from the reference's state before the step."""
+def reference_state(ref, cfg=None):
+    """The port's TrainState from the reference's state before the step;
+    ``cfg``'s networks when given (``resident_config()``)."""
+    from tactile_gan_torch.models.factory import networks
     from tactile_gan_torch.models.patch_discriminator import (
         PatchDiscriminator,
     )
     from tactile_gan_torch.models.unet_plusplus import UNetPlusPlus
     from tactile_gan_torch.train.state import TrainState, make_optimizer
 
-    gen = UNetPlusPlus(nf=NF, compute_dtype=torch.float32)
+    if cfg is None:
+        gen = UNetPlusPlus(nf=NF, compute_dtype=torch.float32)
+        disc = PatchDiscriminator(nf=NF)
+    else:
+        gen, disc = networks(cfg)
     gen.load_state_dict(_group(ref, "gen/"))
-    disc = PatchDiscriminator(nf=NF)
     disc.load_state_dict(_group(ref, "disc/"))
     return TrainState(gen, disc, make_optimizer(gen.parameters(), LR, BETA1),
                       make_optimizer(disc.parameters(), LR, BETA1))
 
 
-def reference_step(ref, state, mesh=None, rows=slice(None)):
-    """One port step on the reference's batch (this rank's ``rows``) and its
-    global draws; the five losses."""
+def reference_step(ref, state, mesh=None, rows=slice(None), cfg=None):
+    """One port step of ``cfg`` (default ``port_config()``) on the
+    reference's batch (this rank's ``rows``) and its global draws; the five
+    losses."""
     from tactile_gan_torch.train.step import build_train_step
 
-    step = build_train_step(port_config(), schedule(), _group(ref, "vgg/"),
-                            mesh)
+    step = build_train_step(cfg or port_config(), schedule(),
+                            _group(ref, "vgg/"), mesh)
     return step(state, torch.from_numpy(ref["src"][rows]),
                 torch.from_numpy(ref["tgt"][rows]), apply_gp=True,
                 label_noise=torch.from_numpy(ref["noise"]),
@@ -361,3 +396,62 @@ def ckpt_rank(rank, world, root):
                    "equal": sorted(a) == sorted(b) and all(
                        torch.equal(a[k], b[k]) for k in a),
                    "split_keys": sorted(k for k in a if "@shard" in k)}, f)
+
+
+# ---------------------------------------------------------------------------
+# The bf16-resident step (--bf16_resident --disc_bf16) under a mesh.
+# ---------------------------------------------------------------------------
+
+RESIDENT = dict(nf=16, batch_size=2, image_size=64, compute_dtype="bfloat16",
+                bf16_resident=True, disc_bf16=True, version=2, lambda_per=1.0)
+RESIDENT_SPLIT = 256  # the trainer's split threshold: 16 nf at nf 16
+PERTURB = 1e-3  # the floor's weight perturbation, a quarter of bf16's step
+FLOOR_SEEDS = (1, 2)
+
+
+def resident_config():
+    return port_config(**RESIDENT)
+
+
+def resident_rank(rank, world, root, ref_path, n_models):
+    """For each ``n_model`` of ``n_models``: one resident step from the
+    reference's state on a ``world / n_model x n_model`` mesh (split at
+    RESIDENT_SPLIT); rank 0 writes the losses, the full state dicts and
+    the dtypes that went through the channel all-gathers to
+    ``root/resident_{n_model}.pt``."""
+    ref = dict(np.load(ref_path))
+    for n_model in n_models:
+        _resident_run(rank, root, ref, n_model)
+
+
+def _resident_run(rank, root, ref, n_model):
+    from tactile_gan_torch.parallel.mesh import local_batch_rows, make_mesh
+    from tactile_gan_torch.parallel.tensor_parallel import (
+        full_state_dicts, shard_state_tp,
+    )
+
+    cfg = resident_config()
+    mesh = make_mesh(0, n_model)
+    state = reference_state(ref, cfg)
+    shard_state_tp(mesh, state, RESIDENT_SPLIT)
+    gathered, orig = set(), dist.all_gather
+
+    def recording(parts, x, *a, **kw):
+        gathered.add(str(x.dtype))
+        return orig(parts, x, *a, **kw)
+
+    dist.all_gather = recording
+    try:
+        losses = reference_step(ref, state, mesh,
+                                local_batch_rows(cfg.batch_size, mesh), cfg)
+    finally:
+        dist.all_gather = orig
+    sd = full_state_dicts(state)
+    if rank == 0:
+        torch.save({"losses": losses, "state": sd,
+                    "gathered": sorted(gathered),
+                    "split": sorted(n for m in (state.gen, state.disc)
+                                    for n, layer in m.named_modules()
+                                    if getattr(layer, "tp_shard", None)
+                                    is not None)},
+                   os.path.join(root, f"resident_{n_model}.pt"))
