@@ -46,8 +46,10 @@ from benchmark.core.weights import load_into, network_weights, vgg_weights
 from benchmark.reference.follow import networks as reference_networks
 from benchmark.traffic_gen.synth import write_dataset
 
-# The port's Adam and parameter dtype, which a configuration can only state.
-FIXED = {"param_dtype": "float32", "beta2": 0.99, "adam_eps": 1e-8}
+# The port's Adam, parameter dtype and discriminator, which a configuration
+# can only state.
+FIXED = {"param_dtype": "float32", "beta2": 0.99, "adam_eps": 1e-8,
+         "disc": "PatchGAN"}
 DATA_WAIT_SPAN = "bench.data_wait"
 
 

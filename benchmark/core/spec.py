@@ -7,10 +7,14 @@ configuration and a traffic mix. The pieces are files of their own:
 - a traffic mix: ``benchmark/traffic/<traffic>.json``;
 - the limits of a cell's output check: ``benchmark/limits/<cell>.json``;
 - a per-layer metric: ``benchmark/metrics/<metric>.py``, a reader with
-  ``read(reading) -> float | None``.
+  ``read(reading) -> float | None``;
+- a configuration's reference networks: the modules of
+  ``benchmark/reference/networks/`` whose ``NAME`` is the configuration's
+  ``gen`` or ``disc`` (``reference/networks/__init__.py``).
 
-A later cell, mix, configuration or metric is one more file and one more
-entry: nothing here names any of them.
+A later cell, mix, configuration, metric or reference network is one more
+file (and, but for a network, one more entry in ``BENCHMARK.json``):
+nothing here names any of them.
 """
 
 from __future__ import annotations

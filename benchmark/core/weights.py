@@ -1,8 +1,9 @@
 """Weights made from the run's seed on the device, in a few large draws:
 the published initialization (every conv and transposed-conv weight
-~ N(0, 0.02), biases 0, instance-norm affine (1, 0)) for G and D, and
-He-normal weights (std sqrt(2 / (9 cin)), biases 0) for the VGG16 tower
-of the v1 perceptual loss, whose pretrained weights are not in the
+~ N(0, 0.02), biases 0, instance-norm affine (1, 0); any other parameter
+by the network's own ``published_init``, drawn after those) for G and D,
+and He-normal weights (std sqrt(2 / (9 cin)), biases 0) for the VGG16
+tower of the v1 perceptual loss, whose pretrained weights are not in the
 repository. One generator stream a network, so the same seed gives the
 same weights on either side and every time they are made again.
 """
@@ -27,7 +28,10 @@ def stream_seed(seed: int, stream: str) -> int:
 def network_weights(model: nn.Module, seed: int, stream: str, device
                     ) -> Dict[str, torch.Tensor]:
     """float32 weights for every parameter of ``model`` (whose own values,
-    on any device, are not read)."""
+    on any device, are not read). Convs, transposed convs and affine
+    instance norms are drawn here; every other parameter, in the order of
+    ``named_parameters``, by ``model.published_init(name, shape,
+    generator)`` from the same stream after the convs' draw."""
     convs, out = [], {}
     for mname, m in model.named_modules():
         prefix = f"{mname}." if mname else ""
@@ -47,6 +51,17 @@ def network_weights(model: nn.Module, seed: int, stream: str, device
         n = math.prod(shape)
         out[name] = flat[at:at + n].view(shape)
         at += n
+    rest = [(n, tuple(p.shape)) for n, p in model.named_parameters()
+            if n not in out]
+    init = getattr(model, "published_init", None)
+    if rest and init is None:
+        raise ValueError(f"parameters not covered: {[n for n, _ in rest]}")
+    for name, shape in rest:
+        w = init(name, shape, gen)
+        if tuple(w.shape) != shape:
+            raise ValueError(f"{name}: published_init gave "
+                             f"{tuple(w.shape)}, not {shape}")
+        out[name] = w.to(device=device, dtype=torch.float32)
     names = [n for n, _ in model.named_parameters()]
     if sorted(names) != sorted(out):
         raise ValueError(f"parameters not covered: "

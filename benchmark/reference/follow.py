@@ -20,7 +20,7 @@ from benchmark.core.check import (
 )
 from benchmark.core.weights import load_into, network_weights, vgg_weights
 from benchmark.reference.data import epoch_batches
-from benchmark.reference.models import GENERATORS, PatchDiscriminator
+from benchmark.reference.networks import build
 from benchmark.reference.step import ReferenceTrainer, StepSpec
 
 INITIAL_EPOCH = 1
@@ -47,11 +47,10 @@ PRECISIONS = {"f32": ("f32", "f32"), "bf16": ("bf16", "bf16"),
 
 def networks(config: dict, prec: str, device) -> Tuple[torch.nn.Module,
                                                        torch.nn.Module]:
-    kw = dict(input_dim=config["input_dim"], output_dim=config["output_dim"],
-              nf=config["nf"])
+    """G and D as the configuration's ``gen`` and ``disc`` name them."""
     gen, disc = PRECISIONS[prec]
-    return (GENERATORS[config["gen"]](prec=gen, **kw).to(device),
-            PatchDiscriminator(prec=disc, **kw).to(device))
+    return (build(config, "gen", gen).to(device),
+            build(config, "disc", disc).to(device))
 
 
 def step_spec(config: dict, traffic: dict) -> StepSpec:

@@ -1,15 +1,9 @@
-"""The reference networks, in plain PyTorch on NCHW float32 tensors.
-
-Written from the published generators of mmheydari97/tactile-gan
-(``generators/UNet_plusplus.py``, ``generators/UNet.py``,
-``discriminators/PatchGAN``) as the port trains them: UNet++ with a 5-row
-backbone (widths nf..16nf, 2x2 average pooling, nearest upsampling, every
-node two conv3x3 -> instance norm -> ReLU units, bias-free convs, affine
-norms, a 1x1 head with Tanh); UNet with seven conv4x4/s2 down stages and
-seven transposed-conv up stages; the conditional PatchGAN with valid
-padding (LeakyReLU 0.2, passing x >= 0); the VGG16 feature tower up to
-relu4_3. Parameter names are the port's ``state_dict`` keys, so one set
-of weights loads into both.
+"""What the reference networks share, in plain PyTorch on NCHW float32
+tensors: each layer's conv under a precision, the instance norm and its
+activation, the norm recorder, and the VGG16 feature tower of the v1
+perceptual loss up to relu4_3. The networks themselves are one module
+each under ``networks/``, found by the name a configuration gives
+(``networks/__init__.py``); nothing here names one.
 
 ``prec`` rounds the operands of every conv of G and D (never of the VGG
 tower), as a lower precision would: "f32" rounds nothing (the
@@ -95,32 +89,48 @@ def _out(y: torch.Tensor, prec: str) -> torch.Tensor:
 _SPLIT = {"fp8_bwd": "fp8", "bf16_fwd": "f32"}
 
 
-def conv(x: torch.Tensor, layer: nn.Module, prec: str = "f32",
-         transpose: bool = False) -> torch.Tensor:
+def _apply(x: torch.Tensor, weight: torch.Tensor, layer: nn.Module
+           ) -> torch.Tensor:
+    """``layer``'s product on ``x`` with ``weight`` in its place, at every
+    part of the layer's geometry."""
+    if isinstance(layer, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, weight, None, layer.stride,
+                                  layer.padding, layer.output_padding,
+                                  layer.groups, layer.dilation)
+    return F.conv2d(x, weight, None, layer.stride, layer.padding,
+                    layer.dilation, layer.groups)
+
+
+def conv(x: torch.Tensor, layer: nn.Module, prec: str = "f32"
+         ) -> torch.Tensor:
     """``layer``'s conv (or transposed conv) on ``x`` under ``prec``; the
     bias is added in float32 after the rounded product."""
-    fn = F.conv_transpose2d if transpose else F.conv2d
+    if layer.padding_mode != "zeros":
+        raise ValueError(f"padding_mode {layer.padding_mode!r}: pad the "
+                         "input in the network (F.pad) and give the layer "
+                         "zero padding")
     if prec in _SPLIT:
         with torch.no_grad():
-            value = _out(fn(_in(x, "bf16"), _in(layer.weight, "bf16"), None,
-                            layer.stride, layer.padding), "bf16")
+            value = _out(_apply(_in(x, "bf16"), _in(layer.weight, "bf16"),
+                                layer), "bf16")
         back = _SPLIT[prec]
-        y = _out(fn(_in(x, back), _in(layer.weight, back), None,
-                    layer.stride, layer.padding), back)
+        y = _out(_apply(_in(x, back), _in(layer.weight, back), layer), back)
         y = value + (y - y.detach())  # bf16's value, the backward's gradient
     else:
-        y = _out(fn(_in(x, prec), _in(layer.weight, prec), None,
-                    layer.stride, layer.padding), prec)
+        y = _out(_apply(_in(x, prec), _in(layer.weight, prec), layer), prec)
     if layer.bias is not None:
         y = y + layer.bias[None, :, None, None]
     return y
 
 
 def instance_norm(x: torch.Tensor, norm: nn.InstanceNorm2d) -> torch.Tensor:
-    """Biased variance over (H, W), eps 1e-5, affine."""
+    """Biased variance over (H, W), the norm's eps; scaled and shifted
+    where the norm is affine."""
     mean = x.mean(dim=(2, 3), keepdim=True)
     var = (x - mean).square().mean(dim=(2, 3), keepdim=True)
-    y = (x - mean) * torch.rsqrt(var + 1e-5)
+    y = (x - mean) * torch.rsqrt(var + norm.eps)
+    if not norm.affine:
+        return y
     return y * norm.weight[None, :, None, None] + norm.bias[None, :, None, None]
 
 
@@ -132,161 +142,39 @@ class NormRecorder:
         self.shapes: List[Tuple[int, ...]] = []
 
 
-def _norm_relu(x, norm, recorder: Optional[NormRecorder]):
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, x * 0.2)
+
+
+ACTIVATIONS = {"relu": torch.relu, "leaky_relu": leaky_relu,
+               None: lambda x: x}
+
+
+def norm_act(x: torch.Tensor, norm: nn.InstanceNorm2d,
+             recorder: Optional[NormRecorder], act: Optional[str]
+             ) -> torch.Tensor:
+    """``norm`` on ``x``, then ``act`` ("relu", "leaky_relu" (slope 0.2,
+    passing x >= 0) or None); ``x``'s shape goes to ``recorder`` where one
+    is given (a generator's norms)."""
     if recorder is not None:
         recorder.shapes.append(tuple(x.shape))
-    return torch.relu(instance_norm(x, norm))
+    return ACTIVATIONS[act](instance_norm(x, norm))
 
 
-def _double(in_ch: int, features: int) -> nn.Sequential:
-    return nn.Sequential(
-        nn.Conv2d(in_ch, features, 3, padding=1, bias=False),
-        nn.InstanceNorm2d(features, affine=True), nn.ReLU(),
-        nn.Conv2d(features, features, 3, padding=1, bias=False),
-        nn.InstanceNorm2d(features, affine=True), nn.ReLU())
+class Block(nn.Module):
+    """Holds a stage's layers as ``layer`` (the port's module names)."""
 
-
-class _Block(nn.Module):
     def __init__(self, layer: nn.Sequential):
         super().__init__()
         self.layer = layer
 
 
-class _Head(nn.Module):
+class Head(nn.Module):
+    """The 1x1 output conv, as ``conv``."""
+
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, 1)
-
-
-class UNetPlusPlus(nn.Module):
-    ROWS = 5
-
-    def __init__(self, input_dim: int = 3, output_dim: int = 3,
-                 nf: int = 64, prec: str = "f32"):
-        super().__init__()
-        self.prec = prec
-        self.recorder: Optional[NormRecorder] = None
-        widths = [nf * 2 ** r for r in range(self.ROWS)]
-        for row in range(self.ROWS):
-            for col in range(self.ROWS - row):
-                if (row, col) == (0, 0):
-                    cin = input_dim
-                elif col == 0:
-                    cin = widths[row - 1]
-                else:
-                    cin = widths[row] * col + widths[row + 1]
-                self.add_module(f"conv{row}_{col}",
-                                _Block(_double(cin, widths[row])))
-        self.downfeature = _Head(nf, output_dim)
-
-    def _node(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        layer = getattr(self, name).layer
-        for ci, ni in ((0, 1), (3, 4)):
-            x = _norm_relu(conv(x, layer[ci], self.prec), layer[ni],
-                           self.recorder)
-        return x
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        nodes = {}
-        h = x
-        for row in range(self.ROWS):
-            if row > 0:
-                h = F.avg_pool2d(h, 2)
-            h = self._node(f"conv{row}_0", h)
-            nodes[(row, 0)] = h
-        for col in range(1, self.ROWS):
-            for row in range(self.ROWS - col):
-                inputs = [nodes[(row, c)] for c in range(col)]
-                inputs.append(F.interpolate(nodes[(row + 1, col - 1)],
-                                            scale_factor=2, mode="nearest"))
-                nodes[(row, col)] = self._node(f"conv{row}_{col}",
-                                               torch.cat(inputs, dim=1))
-        return torch.tanh(conv(nodes[(0, self.ROWS - 1)],
-                               self.downfeature.conv, self.prec))
-
-
-class UNet(nn.Module):
-    STAGES = 7
-
-    def __init__(self, input_dim: int = 3, output_dim: int = 3,
-                 nf: int = 64, prec: str = "f32"):
-        super().__init__()
-        self.prec = prec
-        self.recorder: Optional[NormRecorder] = None
-        enc = [nf, nf * 2, nf * 4, nf * 8, nf * 8, nf * 8, nf * 8]
-        for i, (cin, w) in enumerate(zip([input_dim] + enc[:-1], enc), 1):
-            self.add_module(f"conv{i}", _Block(nn.Sequential(
-                nn.Conv2d(cin, w, 4, stride=2, padding=1, bias=False),
-                nn.InstanceNorm2d(w, affine=True), nn.ReLU(),
-                nn.Conv2d(w, w, 3, padding=1, bias=False),
-                nn.InstanceNorm2d(w, affine=True), nn.ReLU())))
-        dec = [nf * 8, nf * 8, nf * 8, nf * 4, nf * 2, nf, nf]
-        cins = [enc[-1]] + [d + e for d, e in zip(dec[:-1],
-                                                  reversed(enc[:-1]))]
-        for i, (cin, w) in enumerate(zip(cins, dec), 2):
-            self.add_module(f"deconv{i}", _Block(nn.Sequential(
-                nn.ConvTranspose2d(cin, w, 4, stride=2, padding=1,
-                                   bias=False),
-                nn.InstanceNorm2d(w, affine=True), nn.ReLU(),
-                nn.Conv2d(w, w, 3, padding=1, bias=False),
-                nn.InstanceNorm2d(w, affine=True), nn.ReLU())))
-        self.downfeature = _Head(nf, output_dim)
-
-    def _stage(self, name: str, x: torch.Tensor, up: bool) -> torch.Tensor:
-        layer = getattr(self, name).layer
-        x = _norm_relu(conv(x, layer[0], self.prec, transpose=up), layer[1],
-                       self.recorder)
-        return _norm_relu(conv(x, layer[3], self.prec), layer[4],
-                          self.recorder)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        skips = []
-        for i in range(1, self.STAGES + 1):
-            x = self._stage(f"conv{i}", x, up=False)
-            skips.append(x)
-        x = self._stage("deconv2", skips[-1], up=True)
-        for i, skip in zip(range(3, self.STAGES + 2), reversed(skips[:-1])):
-            x = self._stage(f"deconv{i}", torch.cat([x, skip], dim=1),
-                            up=True)
-        return torch.tanh(conv(x, self.downfeature.conv, self.prec))
-
-
-GENERATORS = {"UNet++": UNetPlusPlus, "UNet": UNet}
-
-
-def leaky_relu(x: torch.Tensor) -> torch.Tensor:
-    return torch.where(x >= 0, x, x * 0.2)
-
-
-class PatchDiscriminator(nn.Module):
-    """Returns (sigmoid patch logits (N, 1, H', W'), the four post-LeakyReLU
-    feature maps)."""
-
-    def __init__(self, input_dim: int = 3, output_dim: int = 3,
-                 nf: int = 64, prec: str = "f32"):
-        super().__init__()
-        self.prec = prec
-        cin = input_dim + output_dim
-        self.model = nn.Sequential(
-            nn.Conv2d(cin, nf, 3, 2, 0, bias=True), nn.LeakyReLU(0.2),
-            nn.Conv2d(nf, 2 * nf, 3, 2, 0, bias=False),
-            nn.InstanceNorm2d(2 * nf, affine=True), nn.LeakyReLU(0.2),
-            nn.Conv2d(2 * nf, 4 * nf, 3, 1, 0, bias=False),
-            nn.InstanceNorm2d(4 * nf, affine=True), nn.LeakyReLU(0.2),
-            nn.Conv2d(4 * nf, 8 * nf, 3, 1, 0, bias=False),
-            nn.InstanceNorm2d(8 * nf, affine=True), nn.LeakyReLU(0.2),
-            nn.Conv2d(8 * nf, 1, 3, 1, 0, bias=True))
-
-    def forward(self, img_a: torch.Tensor, img_b: torch.Tensor):
-        x = torch.cat([img_a, img_b], dim=1)
-        x = leaky_relu(conv(x, self.model[0], self.prec))
-        features = [x]
-        for ci in (2, 5, 8):
-            x = leaky_relu(instance_norm(conv(x, self.model[ci], self.prec),
-                                         self.model[ci + 1]))
-            features.append(x)
-        return (torch.sigmoid(conv(x, self.model[11], self.prec)),
-                tuple(features))
 
 
 # (torchvision feature index, out_channels) per block; "M" is the 2x2 max

@@ -1,8 +1,9 @@
-"""Tiny cells for the CPU tests: the benchmark's own cells at nf 8, 64 px
-(UNet: 256 px, which its seven stride-2 stages need), 8 chart pairs,
-batch 2, float32 compute (so that the program and the reference agree to
-rounding), on the CPU."""
+"""Tiny cells for the CPU tests: every cell of ``BENCHMARK.json`` at nf 8
+and its generator's ``CPU_TEST_SIZE`` (the smallest square image its
+stages take), 8 chart pairs, batch 2, float32 compute (so that the
+program and the reference agree to rounding), on the CPU."""
 
+import json
 import os
 import sys
 
@@ -13,12 +14,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-WORKLOADS = ("train.unetpp.b4", "train.unet.b4", "train.unetpp.b4v2")
+with open(os.path.join(ROOT, "BENCHMARK.json")) as _f:
+    WORKLOADS = tuple(w["name"] for w in json.load(_f)["workloads"])
 
 
 def shrink(cell, compute_dtype="float32"):
-    cell.config.update(nf=8, compute_dtype=compute_dtype,
-                       image_size=256 if cell.config["gen"] == "UNet" else 64)
+    from benchmark.reference.networks import find
+
+    size = find(cell.config["gen"], "gen").cpu_test_size
+    cell.config.update(nf=8, compute_dtype=compute_dtype, image_size=size)
     cell.traffic.update(pairs=8, batch_size=2, threads=2)
     return cell
 

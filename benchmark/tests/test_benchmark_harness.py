@@ -1,12 +1,15 @@
-"""The harness: pieces found by name from new files alone, the result
-line's keys, no result without a card, the import check by whole top-level
-names, and BENCHMARK.json within the limits of its format."""
+"""The harness: pieces found by name from new files alone (a generator's
+reference network too), the result line's keys, no result without a card,
+the import check by whole top-level names, and BENCHMARK.json within the
+limits of its format."""
 
 import hashlib
 import json
 import os
 import re
 import shutil
+import subprocess
+import sys
 
 import pytest
 
@@ -24,14 +27,17 @@ def _bench():
         return json.load(f)
 
 
-def _tree_digest(root):
+def _tree_digest(root, leave_out=()):
+    """sha256 of every file under ``root`` but ``.pyc`` files and the
+    relative paths in ``leave_out``, with its path relative to ``root``."""
     h = hashlib.sha256()
     for d, _, files in sorted(os.walk(root)):
         for name in sorted(files):
-            if name.endswith(".pyc"):
-                continue
             path = os.path.join(d, name)
-            h.update(path.encode())
+            rel = os.path.relpath(path, root)
+            if name.endswith(".pyc") or rel in leave_out:
+                continue
+            h.update(rel.encode())
             with open(path, "rb") as f:
                 h.update(f.read())
     return h.hexdigest()
@@ -80,6 +86,80 @@ def test_new_pieces_are_found_by_name(tmp_path):
     result, _ = run(str(root), cell, 5, 0.5, True, "cpu", 0.0)
     assert result["metrics"]["steps_in_window"]["value"] == \
         result["attempted"] / 2
+    assert _tree_digest(os.path.join(ROOT, "benchmark")) == before
+
+
+# Run in a checkout copied with the new files: the copy's harness, the
+# port from the repository, whose factory builds its UNet++ under the new
+# name for this process alone.
+_TWIN_RUN = """
+import json, os
+import torch
+torch.set_num_threads(4)
+import benchmark
+from tactile_gan_torch.models import factory
+factory.GENERATORS["unetpp-twin"] = factory.UNetPlusPlus
+from benchmark.core.runner import run
+from benchmark.core.spec import load_cell
+from benchmark.reference.networks import find
+root = os.getcwd()
+result, lines = run(root, load_cell(root, "train.twin.b2"), 2 ** 31 + 5,
+                    0.5, False, "cpu", 0.0)
+print(json.dumps({"correct": result["correct"], "lines": lines,
+                  "harness": benchmark.__file__,
+                  "network": find("UNetPP-twin", "gen").path}))
+"""
+
+
+def test_new_generator_is_one_new_file(tmp_path):
+    """A generator's reference network as one new file under
+    ``reference/networks/`` (UNet++'s, under a new ``NAME``), with a
+    configuration, a mix and limits of its own: found by name and run
+    correct, with no edit to a file that was there."""
+    before = _tree_digest(os.path.join(ROOT, "benchmark"))
+    root = tmp_path
+    bench_dir = root / "benchmark"
+    shutil.copytree(os.path.join(ROOT, "benchmark"), bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    nets = bench_dir / "reference" / "networks"
+    source = (nets / "unetpp.py").read_text()
+    assert 'NAME = "UNet++"' in source
+    added = {
+        "reference/networks/unetpp_twin.py": source.replace(
+            'NAME = "UNet++"', 'NAME = "UNetPP-twin"'),
+        "configs/unetpp-twin-nf8.json": json.dumps(dict(
+            shrink(load_cell(ROOT, "train.unetpp.b4v2")).config,
+            name="unetpp-twin-nf8", gen="UNetPP-twin")),
+        "traffic/b2-twin.json": json.dumps(dict(
+            load_cell(ROOT, "train.unetpp.b4v2").traffic, name="b2-twin",
+            pairs=8, batch_size=2, threads=2)),
+    }
+    for rel, text in added.items():
+        (bench_dir / rel).write_text(text)
+    shutil.copy(bench_dir / "limits" / "train.unetpp.b4v2.json",
+                bench_dir / "limits" / "train.twin.b2.json")
+    added["limits/train.twin.b2.json"] = ""
+    bench = _bench()
+    bench["configs"].append({
+        "name": "unetpp-twin-nf8", "source": "test",
+        "file": "benchmark/configs/unetpp-twin-nf8.json", "reduced": [],
+        "why": "test"})
+    bench["workloads"].append({"name": "train.twin.b2", "chips": 1,
+                               "config": "unetpp-twin-nf8",
+                               "traffic": "b2-twin", "why": "test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", _TWIN_RUN], cwd=root,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["harness"].startswith(str(root))
+    assert out["network"] == str(nets / "unetpp_twin.py")
+    assert out["correct"] is True, out["lines"]
+    assert _tree_digest(str(bench_dir), leave_out=set(added)) == before
     assert _tree_digest(os.path.join(ROOT, "benchmark")) == before
 
 
@@ -140,14 +220,17 @@ def test_benchmark_json_within_its_format():
     for c in bench["configs"]:
         assert NAME.match(c["name"]) and os.path.isfile(
             os.path.join(ROOT, c["file"]))
-        assert c["file"].startswith("benchmark/") and c["reduced"] == []
+        assert c["file"].startswith("benchmark/")
+        assert isinstance(c["reduced"], list) and len(c["reduced"]) <= 16
+        for key in c["reduced"]:
+            assert isinstance(key, str) and NAME.match(key)
         assert 1 <= len(c["source"]) <= 200 and 1 <= len(c["why"]) <= 200
     cells = set()
     for w in bench["workloads"]:
         assert NAME.match(w["name"]) and w["config"] in configs
         assert (w["config"], w["traffic"]) not in cells
         cells.add((w["config"], w["traffic"]))
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         load_cell(ROOT, w["name"])  # its mix and limits exist
     names = [m["name"] for m in bench["end_to_end"] + bench["per_layer"]]
     assert len(names) == len(set(names))
