@@ -192,7 +192,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="perceptual loss coefficient")
     p.add_argument("--w_per", nargs=4, type=float, default=[0, 0.1, 0.3, 0.6],
                    help="perceptual weights")
-    p.add_argument("--gen", default="UNet++", choices=["UNet++", "UNet", "BCDUNet"],
+    p.add_argument("--gen", default="UNet++",
+                   choices=["UNet++", "UNet", "BCDUNet", "SPADE"],
                    help="generator architecture")
     p.add_argument("--nf", type=int, default=64,
                    help="base filter count of the architectures")

@@ -3,7 +3,9 @@
 // captured becomes a node of its CUDA graph, so in a profiler trace of a
 // replay every kernel after a marker, up to the next, belongs to that
 // marker's phase (tactile_gan_torch/utils/profiling.py PHASES; tg_mark_end
-// closes the step). The kernels do nothing and read no memory.
+// closes the step). A layer's markers bracket a model's layer inside the
+// step's phases, forward and backward (profiling.py layer_mark). The
+// kernels do nothing and read no memory.
 #include <cuda_runtime.h>
 #include <string.h>
 
@@ -12,9 +14,16 @@
   X(prep) X(g_fwd) X(d_fwd) X(gp) X(d_bwd) X(d_adam) X(g_dfwd) X(g_loss)   \
   X(g_bwd) X(g_adam) X(end)
 
+// The layers that models mark (the name each model passes to layer_mark),
+// four markers a layer: tg_mark_<layer>_in, _out, _bwd_out and _bwd_in.
+#define TG_LAYERS(X) X(spade)
+#define TG_LAYER(X, l) X(l##_in) X(l##_out) X(l##_bwd_out) X(l##_bwd_in)
+
 #define TG_DEFINE(n) \
   extern "C" __global__ void tg_mark_##n() {}
+#define TG_DEFINE_LAYER(l) TG_LAYER(TG_DEFINE, l)
 TG_MARKS(TG_DEFINE)
+TG_LAYERS(TG_DEFINE_LAYER)
 
 namespace {
 
@@ -24,7 +33,8 @@ struct Mark {
 };
 
 #define TG_ENTRY(n) {"tg_mark_" #n, tg_mark_##n},
-const Mark kMarks[] = {TG_MARKS(TG_ENTRY)};
+#define TG_ENTRY_LAYER(l) TG_LAYER(TG_ENTRY, l)
+const Mark kMarks[] = {TG_MARKS(TG_ENTRY) TG_LAYERS(TG_ENTRY_LAYER)};
 
 }  // namespace
 

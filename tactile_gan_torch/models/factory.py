@@ -10,10 +10,12 @@ from torch import nn
 
 from tactile_gan_torch.models.bcdunet import BCDUNet
 from tactile_gan_torch.models.patch_discriminator import PatchDiscriminator
+from tactile_gan_torch.models.spade import SPADEGenerator
 from tactile_gan_torch.models.unet import UNet
 from tactile_gan_torch.models.unet_plusplus import UNetPlusPlus
 
-GENERATORS = {"unet++": UNetPlusPlus, "unet": UNet, "bcdunet": BCDUNet}
+GENERATORS = {"unet++": UNetPlusPlus, "unet": UNet, "bcdunet": BCDUNet,
+              "spade": SPADEGenerator}
 
 
 def create_generator(name: str, input_dim: int = 3, output_dim: int = 3,
@@ -22,7 +24,8 @@ def create_generator(name: str, input_dim: int = 3, output_dim: int = 3,
                      space_to_depth: bool = False,
                      bf16_resident: bool = False) -> nn.Module:
     """``bf16_resident`` applies to UNet++ only; UNet and BCDUNet ignore it,
-    as the JAX factory does."""
+    as the JAX factory does, and so does SPADE, which the JAX package does
+    not have."""
     key = name.lower()
     if space_to_depth and key != "unet++":
         raise ValueError("--space_to_depth is only supported for UNet++")

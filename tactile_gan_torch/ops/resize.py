@@ -1,6 +1,9 @@
 """Spatial resizes on NHWC tensors.
 
-- ``upsample_nearest2``: nn.Upsample(scale_factor=2), nearest (UNet++).
+- ``upsample_nearest2``: nn.Upsample(scale_factor=2), nearest (UNet++,
+  SPADE).
+- ``downsample_nearest``: F.interpolate(mode='nearest') to H/k x W/k for a
+  whole k (SPADE's segmentation map at each of its scales).
 - ``space_to_depth2`` / ``depth_to_space2``: 2x2 pixel blocks folded into
   channels and back (the ``--space_to_depth`` UNet++ row 0), in the JAX
   package's channel order.
@@ -21,6 +24,16 @@ def upsample_nearest2(x: torch.Tensor) -> torch.Tensor:
     n, h, w, c = x.shape
     return (x[:, :, None, :, None, :].expand(n, h, 2, w, 2, c)
             .reshape(n, 2 * h, 2 * w, c))
+
+
+def downsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N, H/factor, W/factor, C), pixel (factor i,
+    factor j) at (i, j): nearest's source pixel floor(i * H / (H/factor))
+    where ``factor`` divides H and W."""
+    n, h, w, c = x.shape
+    if h % factor or w % factor:
+        raise ValueError(f"{h}x{w} is not a multiple of {factor}")
+    return x[:, ::factor, ::factor].contiguous()
 
 
 def space_to_depth2(x: torch.Tensor) -> torch.Tensor:

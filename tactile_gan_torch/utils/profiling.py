@@ -3,9 +3,9 @@
     python -m tactile_gan_torch.utils.profiling [--gen G] [--batch 1 4] [--reps 5]
     python -m tactile_gan_torch.utils.profiling --train [--gen G] [--reps 3]
 
-Builds the ``--gen`` generator (UNet++, UNet or BCDUNet; UNet++ by default)
-at nf=64 and 256x256 with N(0, 0.02) weights from ``--seed`` and the
-default bfloat16 compute. The default mode runs
+Builds the ``--gen`` generator (UNet++, UNet, BCDUNet or SPADE; UNet++ by
+default) at nf=64 and 256x256 with N(0, 0.02) weights from ``--seed`` and
+the default bfloat16 compute. The default mode runs
 ``--reps`` forwards per batch size under ``torch.profiler``, then the
 ``u8_eval`` serving program (``eval/graph.py``: normalize, the forward, the
 uint8 quantize and the metric sums) at the same batch, run op by op and as
@@ -155,6 +155,47 @@ def phase(name: str, like: torch.Tensor):
 def end_step(like: torch.Tensor) -> None:
     """Close the step's last phase on the card (``END_MARK``)."""
     marks.mark(END_MARK, like)
+
+
+# A model's layer marks, none of them a phase's: ``layer``'s entry and exit
+# in the forward, ``tg_mark_<layer>_in`` and ``_out``, and each one's twin
+# in the backward, where the gradient passes the same point: the exit's
+# twin (``_bwd_out``) where the layer's backward starts, the entry's
+# (``_bwd_in``) where it ends. The model names its layer
+# (``models/spade.py``); ``csrc/phase_marks.cu`` ``TG_LAYERS`` lists the
+# layers that have markers. Inside a generator, the forward's lie in
+# ``step.g_fwd`` and the backward's in ``step.g_bwd``.
+
+
+class _LayerMark(torch.autograd.Function):
+    """Passes ``x``; launches ``symbol`` in the forward and ``twin`` in the
+    backward, on the current stream where the tensor is on the card."""
+
+    @staticmethod
+    def forward(ctx, x, symbol, twin):
+        ctx.twin = twin
+        marks.mark(symbol, x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        marks.mark(ctx.twin, g)
+        return g, None, None
+
+
+def layer_marks(layer: str) -> Tuple[str, ...]:
+    """The four markers of ``layer``: in, out, bwd_out, bwd_in."""
+    return tuple(f"tg_mark_{layer}_{w}"
+                 for w in ("in", "out", "bwd_out", "bwd_in"))
+
+
+def layer_mark(x: torch.Tensor, layer: str, where: str) -> torch.Tensor:
+    """``x``, marked as ``layer``'s entry (``where`` "in") or exit ("out")
+    in the forward and in the backward."""
+    if where not in ("in", "out"):
+        raise ValueError(f"where is 'in' or 'out', got {where!r}")
+    return _LayerMark.apply(x, f"tg_mark_{layer}_{where}",
+                            f"tg_mark_{layer}_bwd_{where}")
 
 
 def phase_walk(kernels: Iterable[Tuple[str, float, float]]
@@ -436,7 +477,7 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gen", default="UNet++",
-                    choices=["UNet++", "UNet", "BCDUNet"])
+                    choices=["UNet++", "UNet", "BCDUNet", "SPADE"])
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of forwards")
     ap.add_argument("--out", default=None,
